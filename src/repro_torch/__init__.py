@@ -1,0 +1,24 @@
+"""repro_torch — the KiSS warm-pool simulator on PyTorch and CUDA.
+
+A port of the JAX package ``repro`` that keeps its module layout and
+public names, so each module here has a counterpart there::
+
+    from repro_torch.sim import Scenario, simulate
+    from repro_torch.workloads import edge_trace
+
+    res = simulate(Scenario.kiss(4096.0), edge_trace(0, 3600.0))  # on CUDA
+    res.summary()["cold_start_pct"]
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; without a card they raise rather than fall back.
+This package imports neither JAX nor ``repro``: the host-side numpy
+code it shares with the reference is copied, not imported.
+
+Ported so far: the static (resize-off) ``simulate`` path in the
+``"gather"``, ``"vmap"`` and ``"fused"`` step modes, with the fused
+evict-and-place step written as a CUDA kernel
+(``repro_torch.kernels.pool_step``).
+"""
+from ._device import resolve_device
+
+__all__ = ["resolve_device"]

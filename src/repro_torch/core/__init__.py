@@ -1,0 +1,16 @@
+"""Core of the port: types, policy registries, the torch ``xp``
+namespace, the continuum config and the warm pool."""
+from .types import (DROP, HIT, LARGE, MISS, SMALL, ClassMetrics, Policy,
+                    PoolConfig, SimResult, Trace)
+from .registry import (REPLACEMENT, ROUTING, PolicySpec, RouteCtx,
+                       SlotStats, register_replacement, register_routing,
+                       replacement_policies, routing_policies)
+from .continuum import ClusterConfig, ContinuumResult, RoutingPolicy
+
+__all__ = [
+    "DROP", "HIT", "LARGE", "MISS", "SMALL", "ClassMetrics",
+    "ClusterConfig", "ContinuumResult", "Policy", "PolicySpec",
+    "PoolConfig", "REPLACEMENT", "ROUTING", "RouteCtx", "RoutingPolicy",
+    "SimResult", "SlotStats", "Trace", "register_replacement",
+    "register_routing", "replacement_policies", "routing_policies",
+]

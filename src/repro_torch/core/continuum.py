@@ -1,0 +1,131 @@
+"""Edge-cloud continuum: the cluster config and its host-side numpy data.
+
+The parts of ``repro.core.continuum`` the static cluster path needs,
+copied byte for byte because they are shared verbatim with the
+reference: ``ClusterConfig`` (with ``pool_caps``), the routing hashes,
+the pre-drawn cloud cold-start coins and the end-to-end pricing.  The
+numpy oracle (``cluster_outcomes_ref``), failures, autoscaling and
+chain plans are not ported yet (ROADMAP A5, A8, A10, A14).
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import numpy as np
+
+from .registry import REPLACEMENT, ROUTING
+from .types import HIT, MISS, ClassMetrics, Policy, Trace
+
+
+class RoutingPolicy(enum.IntEnum):
+    """The built-in routing policies' registry codes, as an enum."""
+
+    STICKY = 0
+    LEAST_LOADED = 1
+    SIZE_AWARE = 2
+    POWER_OF_TWO = 3
+
+
+# the registry is the source of truth; the enums are frozen aliases of
+# its first entries and must never drift from it
+if [r.name.lower() for r in RoutingPolicy] != ROUTING.names()[:4]:
+    raise RuntimeError("RoutingPolicy drifted from the routing registry")
+if [p.name.lower() for p in Policy] != REPLACEMENT.names()[:3]:
+    raise RuntimeError("Policy drifted from the replacement registry")
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterConfig:
+    """A heterogeneous edge cluster in front of a priced cloud tier.
+
+    Per-node tuples: ``node_mb`` (warm-pool memory), ``small_frac`` (KiSS
+    split, ignored when unified) and ``unified`` (True = one pool).
+    Every node materializes two pools — a unified node gets ``(node_mb,
+    0)`` and routes both classes to pool 0 — so all pools of the cluster
+    stack on one leading axis.  The vertical-scaling fields of the
+    reference (``resize_policy``/``resize_min_mb``) wait for ROADMAP A11.
+    """
+
+    node_mb: tuple[float, ...]
+    small_frac: tuple[float, ...]
+    unified: tuple[bool, ...]
+    policy: Policy | int | str = Policy.LRU
+    routing: RoutingPolicy | int | str = RoutingPolicy.STICKY
+    cloud_rtt_s: float = 0.25         # edge->cloud round trip
+    cloud_cold_prob: float = 0.05     # cloud has big warm pools
+    max_slots: int = 1024             # per-pool slot count
+
+    def __post_init__(self):
+        n = len(self.node_mb)
+        if not (len(self.small_frac) == len(self.unified) == n and n > 0):
+            raise ValueError("node_mb/small_frac/unified must align, n>=1")
+        rcode = ROUTING.resolve(self.routing)
+        object.__setattr__(
+            self, "routing",
+            RoutingPolicy(rcode) if rcode < len(RoutingPolicy) else rcode)
+        pcode = REPLACEMENT.resolve(self.policy)
+        object.__setattr__(
+            self, "policy", Policy(pcode) if pcode < len(Policy) else pcode)
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.node_mb)
+
+    def pool_caps(self) -> np.ndarray:
+        """f64[N, 2] per-node (small, large) pool capacities in MB,
+        rounded through float32 as the reference rounds them."""
+        caps = np.zeros((self.n_nodes, 2), np.float64)
+        for n in range(self.n_nodes):
+            if self.unified[n]:
+                caps[n] = (self.node_mb[n], 0.0)
+            else:
+                caps[n] = (self.node_mb[n] * self.small_frac[n],
+                           self.node_mb[n] * (1.0 - self.small_frac[n]))
+        return np.float32(caps).astype(np.float64)
+
+
+def route_hashes(func_id: np.ndarray, n_nodes: int):
+    """Two deterministic node hashes per event: ``h1 = func_id % n_nodes``
+    (sticky) and ``h2`` a Knuth multiplicative hash."""
+    fid = np.asarray(func_id)
+    h1 = (fid % n_nodes).astype(np.int32)
+    mixed = (fid.astype(np.uint32) * np.uint32(2654435761)) >> np.uint32(16)
+    h2 = (mixed % np.uint32(n_nodes)).astype(np.int32)
+    return h1, h2
+
+
+def cloud_cold_draws(n: int, prob: float, rng_seed: int = 0) -> np.ndarray:
+    """Pre-drawn cloud cold-start coin flips (common random numbers)."""
+    return np.random.default_rng(rng_seed).random(n) < prob
+
+
+def continuum_latencies(trace: Trace, outcome: np.ndarray,
+                        cloud_cold: np.ndarray,
+                        cloud_rtt_s: float) -> np.ndarray:
+    """Price each outcome end-to-end: hit -> warm, miss -> cold, drop ->
+    RTT + cloud execution (cold with the pre-drawn probability)."""
+    warm = np.asarray(trace.warm_dur, np.float64)
+    cold = np.asarray(trace.cold_dur, np.float64)
+    return np.where(outcome == HIT, warm,
+                    np.where(outcome == MISS, cold,
+                             cloud_rtt_s + np.where(cloud_cold, cold, warm)))
+
+
+@dataclasses.dataclass
+class ContinuumResult:
+    edge: ClassMetrics
+    cloud_offloads: int
+    latencies: np.ndarray             # per-invocation end-to-end seconds
+
+    @property
+    def offload_pct(self) -> float:
+        n = len(self.latencies)
+        return 100.0 * self.cloud_offloads / n if n else 0.0
+
+    def latency_stats(self) -> dict:
+        lat = self.latencies
+        return {"mean_s": float(lat.mean()),
+                "p50_s": float(np.percentile(lat, 50)),
+                "p95_s": float(np.percentile(lat, 95)),
+                "p99_s": float(np.percentile(lat, 99))}

@@ -1,0 +1,333 @@
+"""Warm pool on torch: fixed-slot state and the one-event transition.
+
+The port of ``repro.core.pool_jax``.  A pool is a :class:`PoolState` of
+fixed-size slot arrays; one invocation is a pure function of the state
+(:func:`pool_step_batch`), bitwise equal to the reference on quantized
+traces:
+
+* greedy eviction in (priority, launch-seq) order == stable sort +
+  prefix sum over the freed bytes, evicting the minimal prefix that
+  covers the deficit;
+* busy containers are never evicted;
+* the GreedyDual clock inflates to the largest evicted priority.
+
+JAX's ``vmap`` over pools is written out here: every function takes a
+leading pool axis ``P`` (state fields ``[P, S]`` and scalars ``[P]``),
+and :func:`pool_step` is the one-pool case.  ``.at[i].set(v)`` becomes a
+``where`` against a one-hot slot mask, and ``jnp.argsort(stable=True)``
+becomes ``torch.argsort(stable=True)``.  No function here reads a value
+back to the host, so a CUDA state steps without synchronizing.
+
+The miss path's evict-and-place decision goes through a registered
+*step backend* (the contract above :data:`_STEP_BACKENDS`): ``"lax"`` is
+the sort composite under the reference's name, and ``"fused"`` is the
+hand-written CUDA kernel of ``repro_torch.kernels.pool_step``.
+
+The reference's seven vertical-scaling fields stay on the state as
+``None`` defaults; the resize path itself and ``pool_resize`` are not
+ported yet (ROADMAP A11, A8).
+"""
+from __future__ import annotations
+
+from typing import Mapping, NamedTuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from . import xp
+from .registry import SlotStats, replacement_priority
+from .types import DROP, HIT, MISS, Policy, PoolConfig
+
+_INF = float("inf")
+
+
+class PoolState(NamedTuple):
+    """Warm-pool state; every field carries a leading pool axis in the
+    batched step (slot arrays ``[P, S]``, scalars ``[P]``)."""
+
+    # per-slot arrays (S = max_slots)
+    func_id: torch.Tensor    # i32[S], -1 = empty
+    size: torch.Tensor       # f32[S] MB
+    last_use: torch.Tensor   # f32[S]
+    freq: torch.Tensor       # f32[S]
+    gd_pri: torch.Tensor     # f32[S]
+    busy_until: torch.Tensor # f32[S]
+    seq: torch.Tensor        # f32[S] launch sequence (tie-break)
+    valid: torch.Tensor      # bool[S]
+    # scalars
+    capacity: torch.Tensor   # f32
+    free: torch.Tensor       # f32
+    clock: torch.Tensor      # f32 GreedyDual inflation clock
+    next_seq: torch.Tensor   # f32
+    policy: torch.Tensor     # i32 replacement-policy code
+    # vertical scaling: None until ROADMAP A11 ports it
+    alloc: torch.Tensor | None = None
+    used: torch.Tensor | None = None
+    rz_policy: torch.Tensor | None = None
+    rz_min: torch.Tensor | None = None
+    acc_used: torch.Tensor | None = None
+    acc_alloc: torch.Tensor | None = None
+    bneck: torch.Tensor | None = None
+
+
+#: The dtype of every static field, as the reference keeps it.
+STATE_DTYPES = {
+    "func_id": torch.int32, "size": torch.float32,
+    "last_use": torch.float32, "freq": torch.float32,
+    "gd_pri": torch.float32, "busy_until": torch.float32,
+    "seq": torch.float32, "valid": torch.bool,
+    "capacity": torch.float32, "free": torch.float32,
+    "clock": torch.float32, "next_seq": torch.float32,
+    "policy": torch.int32,
+}
+_RESIZE_FIELDS = PoolState._fields[len(STATE_DTYPES):]
+
+
+class Event(NamedTuple):
+    """One invocation; 0-d tensors (f32 times and sizes, i32 ids)."""
+
+    t: torch.Tensor
+    func_id: torch.Tensor
+    size: torch.Tensor
+    cls: torch.Tensor
+    warm: torch.Tensor
+    cold: torch.Tensor
+    used: torch.Tensor | None = None   # resize only (ROADMAP A11)
+
+
+def _no_resize(p: PoolState) -> None:
+    if p.alloc is not None:
+        raise NotImplementedError(
+            "vertical scaling (resize) is not ported yet (ROADMAP A11)")
+
+
+def init_pool(cfg: PoolConfig, device=None) -> PoolState:
+    """An empty pool on ``device`` (``None`` means the CUDA device; a
+    CPU pool is asked for with ``device="cpu"``)."""
+    device = resolve_device(device)
+    s = cfg.max_slots
+    f32 = dict(dtype=torch.float32, device=device)
+    return PoolState(
+        func_id=torch.full((s,), -1, dtype=torch.int32, device=device),
+        size=torch.zeros(s, **f32),
+        last_use=torch.zeros(s, **f32),
+        freq=torch.zeros(s, **f32),
+        gd_pri=torch.zeros(s, **f32),
+        busy_until=torch.zeros(s, **f32),
+        seq=torch.zeros(s, **f32),
+        valid=torch.zeros(s, dtype=torch.bool, device=device),
+        capacity=torch.tensor(cfg.capacity_mb, **f32),
+        free=torch.tensor(cfg.capacity_mb, **f32),
+        clock=torch.tensor(0.0, **f32),
+        next_seq=torch.tensor(1.0, **f32),
+        policy=torch.tensor(int(cfg.policy), dtype=torch.int32,
+                            device=device),
+    )
+
+
+def pool_state_from_numpy(fields: Mapping[str, np.ndarray],
+                          device) -> PoolState:
+    """The port's :class:`PoolState` from a reference state's leaves as
+    numpy arrays (``{k: np.asarray(v) for k, v in
+    state._asdict().items() if v is not None}``), single or stacked —
+    the simulator's equivalent of loading weights.  Each field gets the
+    reference's dtype explicitly."""
+    unknown = set(fields) - set(PoolState._fields)
+    if unknown:
+        raise ValueError(f"not PoolState fields: {sorted(unknown)}")
+    if any(fields.get(f) is not None for f in _RESIZE_FIELDS):
+        raise NotImplementedError(
+            "resize-enabled pool states are not ported yet (ROADMAP A11)")
+    missing = set(STATE_DTYPES) - set(fields)
+    if missing:
+        raise ValueError(f"missing PoolState fields: {sorted(missing)}")
+    return PoolState(**{
+        k: torch.tensor(np.asarray(fields[k]), dtype=dt, device=device)
+        for k, dt in STATE_DTYPES.items()})
+
+
+def stack_pools(states) -> PoolState:
+    """Stack single-pool states on a new leading pool axis."""
+    return PoolState(*(None if xs[0] is None else torch.stack(xs)
+                       for xs in zip(*states)))
+
+
+def _gd(clock, freq, cold_cost, size):
+    return clock + freq * cold_cost / torch.clamp_min(size, 1e-6)
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 when none), as
+    ``jnp.argmax`` of a bool array."""
+    return mask.to(torch.uint8).argmax(-1)
+
+
+def _evict_prefix(pri, seq, sz, idle, deficit):
+    """The minimal ``(priority, seq)``-ordered prefix of idle slots whose
+    eviction covers ``deficit``: stable sort by ``seq``, then stably by
+    ``pri``, and a prefix sum over the freed bytes.  ``pri`` is already
+    ``+inf`` on slots that are not idle.  Returns ``(evict bool[P, S],
+    freed f32[P])``."""
+    by_seq = torch.argsort(seq, dim=-1, stable=True)
+    order = by_seq.gather(
+        -1, torch.argsort(pri.gather(-1, by_seq), dim=-1, stable=True))
+    idle_ord = idle.gather(-1, order)
+    sz_ord = torch.where(idle_ord, sz.gather(-1, order), 0.0)
+    freed_before = torch.cumsum(sz_ord, -1) - sz_ord
+    evict_ord = idle_ord & (freed_before < (deficit - 1e-9).unsqueeze(-1))
+    evict = torch.zeros_like(idle).scatter(-1, order, evict_ord)
+    freed = torch.where(evict, sz, 0.0).sum(-1)
+    return evict, freed
+
+
+# ---------------------------------------------------------------------------
+# Step backends: implementations of the miss-path evict-and-place decision
+# over the stacked [pools, slots] axes.  The contract, as the reference's:
+#
+#   backend(pri f32[P,S], seq f32[P,S], size f32[P,S], idle bool[P,S],
+#           valid bool[P,S], deficit f32[P])
+#       -> (evict bool[P,S], freed f32[P], ins i32[P],
+#           avail f32[P], empty_exists bool[P])
+#
+# ``pri`` is +inf on slots that are not idle, ``size`` is the bytes an
+# eviction frees, ``deficit`` the bytes that must be freed (may be <= 0);
+# ``evict`` is the minimal (priority, seq)-ordered idle prefix covering
+# the deficit, ``freed``/``avail`` the evicted / all evictable bytes, and
+# ``ins``/``empty_exists`` locate the first slot empty after eviction.
+# Every backend is bitwise equal to ``_evict_place_lax``.
+_STEP_BACKENDS: dict = {}
+
+
+def register_step_backend(name: str):
+    """Register a miss-path evict-and-place backend (see the contract)."""
+    def deco(fn):
+        if name in _STEP_BACKENDS:
+            raise ValueError(f"step backend {name!r} already registered")
+        _STEP_BACKENDS[name] = fn
+        return fn
+    return deco
+
+
+def step_backends() -> tuple[str, ...]:
+    """Names of the registered step backends."""
+    get_step_backend("fused")   # make sure the lazy default is in
+    return tuple(_STEP_BACKENDS)
+
+
+def get_step_backend(name: str):
+    """Resolve a backend by name; ``"fused"`` imports the kernel module
+    on first use (kernels -> core is the only import direction)."""
+    if name not in _STEP_BACKENDS and name == "fused":
+        from ..kernels import pool_step as _  # noqa: F401  (registers)
+    try:
+        return _STEP_BACKENDS[name]
+    except KeyError:
+        raise ValueError(f"unknown step backend {name!r}; registered: "
+                         f"{tuple(_STEP_BACKENDS)}") from None
+
+
+@register_step_backend("lax")
+def _evict_place_lax(pri, seq, size, idle, valid, deficit):
+    """Reference backend: the sort composite of ``_evict_prefix``."""
+    evict, freed = _evict_prefix(pri, seq, size, idle, deficit)
+    avail = torch.where(idle, size, 0.0).sum(-1)
+    empty = ~(valid & ~evict)
+    return (evict, freed, _first_true(empty).to(torch.int32), avail,
+            empty.any(-1))
+
+
+def _select(mask: torch.Tensor, new, old):
+    """``where(mask, new, old)`` with ``mask`` over the leading pool
+    axis; a field a branch left untouched is passed through as is."""
+    if new is old:
+        return old
+    return torch.where(mask.view(mask.shape + (1,) * (old.ndim - 1)),
+                       new, old)
+
+
+def pool_step_batch(p: PoolState, ev: Event, evict_place):
+    """Process one invocation against every stacked pool at once.
+
+    ``p`` carries a leading pool axis ``P`` on every field; the outcome
+    (hit / miss / drop) and new state are computed for every pool
+    against the same event, and the caller keeps the rows it routed to.
+    The miss path's evict-and-place decision is delegated to
+    ``evict_place`` (a registered step backend).  Returns ``(new_state,
+    outcome i32[P])``."""
+    _no_resize(p)
+    slots = torch.arange(p.func_id.shape[-1], device=p.func_id.device)
+    idle = p.valid & (p.busy_until <= ev.t)          # [P, S]
+    match = idle & (p.func_id == ev.func_id)
+    any_hit = match.any(-1)                          # [P]
+    cold_cost = ev.cold - ev.warm
+
+    # ---- HIT branch: touch the matching idle container with lowest seq ----
+    hit_slot = torch.where(match, p.seq, _INF).argmin(-1, keepdim=True)
+    hit_oh = slots == hit_slot                       # [P, S]
+    new_freq = p.freq.gather(-1, hit_slot) + 1.0     # [P, 1]
+    hit_state = p._replace(
+        last_use=torch.where(hit_oh, ev.t, p.last_use),
+        freq=torch.where(hit_oh, new_freq, p.freq),
+        gd_pri=torch.where(
+            hit_oh, _gd(p.clock.unsqueeze(-1), new_freq, cold_cost,
+                        p.size.gather(-1, hit_slot)), p.gd_pri),
+        busy_until=torch.where(hit_oh, ev.t + ev.warm, p.busy_until),
+    )
+
+    # ---- MISS branch: the backend evicts the (priority, seq)-prefix,
+    # then the new container goes into the first empty slot ------------
+    deficit = ev.size - p.free                       # [P]
+    stats = SlotStats(last_use=p.last_use, freq=p.freq, gd_pri=p.gd_pri,
+                      size=p.size, busy_until=p.busy_until)
+    pri = torch.where(
+        idle, replacement_priority(xp, p.policy.unsqueeze(-1), stats), _INF)
+    evict, freed, ins, avail, empty_exists = evict_place(
+        pri, p.seq, p.size, idle, p.valid, deficit)
+
+    can_place = ((ev.size <= p.capacity + 1e-9)
+                 & (avail >= deficit - 1e-9)
+                 & empty_exists)
+    is_gd = p.policy == int(Policy.GREEDY_DUAL)
+    # with no eviction the inner max is -inf and maximum() keeps p.clock
+    new_clock = torch.where(
+        is_gd,
+        torch.maximum(p.clock,
+                      torch.where(evict, p.gd_pri, -_INF).amax(-1)),
+        p.clock)
+    ins_oh = slots == ins.unsqueeze(-1)              # [P, S]
+    miss_state = p._replace(
+        func_id=torch.where(ins_oh, ev.func_id, p.func_id),
+        size=torch.where(ins_oh, ev.size, p.size),
+        last_use=torch.where(ins_oh, ev.t, p.last_use),
+        freq=torch.where(ins_oh, 1.0, p.freq),
+        gd_pri=torch.where(
+            ins_oh, _gd(new_clock.unsqueeze(-1), 1.0, cold_cost, ev.size),
+            p.gd_pri),
+        busy_until=torch.where(ins_oh, ev.t + ev.cold, p.busy_until),
+        seq=torch.where(ins_oh, p.next_seq.unsqueeze(-1), p.seq),
+        valid=(p.valid & ~evict) | ins_oh,
+        free=p.free + freed - ev.size,
+        clock=new_clock,
+        next_seq=p.next_seq + 1.0,
+    )
+
+    # ---- select ----
+    outcome = torch.where(any_hit, HIT,
+                          torch.where(can_place, MISS, DROP)
+                          ).to(torch.int32)          # [P]
+    is_hit, is_miss = outcome == HIT, outcome == MISS
+    new_state = PoolState(*(
+        _select(is_miss, m, _select(is_hit, h, d))
+        for h, m, d in zip(hit_state, miss_state, p)))
+    return new_state, outcome
+
+
+def pool_step(p: PoolState, ev: Event):
+    """Process one invocation against one pool (unbatched fields).
+    Returns ``(new_state, outcome i32)``; the one-pool case of
+    :func:`pool_step_batch` with the ``"lax"`` backend."""
+    one = PoolState(*(None if a is None else a.unsqueeze(0) for a in p))
+    new, outcome = pool_step_batch(one, ev, _evict_place_lax)
+    return (PoolState(*(None if a is None else a.squeeze(0) for a in new)),
+            outcome.squeeze(0))

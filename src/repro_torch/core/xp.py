@@ -1,0 +1,109 @@
+"""The array namespace ``xp`` that the policy bodies run on, over torch.
+
+A registered policy is one pure function ``fn(xp, ctx)`` written against
+numpy's spelling (``repro.core.registry``).  This module gives torch that
+spelling, so the bodies are the reference's own text:
+
+* ``xp.float32(1e-6)`` / ``xp.int32(k)`` construct scalars.  They return
+  Python numbers rounded through the numpy type, which torch combines
+  with a tensor in the tensor's dtype, as JAX does with a weak scalar;
+* ``xp.mod`` is ``torch.remainder`` (the sign of the divisor, as numpy);
+* ``xp.argmax``/``xp.argmin`` of a bool array cast it to ``uint8`` first
+  (torch's ``argmax`` takes no bools) and keep the first-index tie rule;
+* ``xp.maximum`` takes a Python number on either side;
+* ctx arrays are :class:`XTensor`, which adds ``.astype`` and reads
+  ``a[i]`` at a 0-d index tensor with ``index_select``, so that reading
+  one node's entry never copies the index to the host.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class _Scalar:
+    """A numpy scalar type usable both as a constructor and a dtype."""
+
+    def __init__(self, np_type, torch_dtype, py_type):
+        self.np_type, self.torch, self.py_type = np_type, torch_dtype, py_type
+
+    def __call__(self, value):
+        return self.py_type(self.np_type(value))
+
+
+float32 = _Scalar(np.float32, torch.float32, float)
+int32 = _Scalar(np.int32, torch.int32, int)
+inf = float("inf")
+
+
+def _dtype(dtype) -> torch.dtype:
+    return dtype.torch if isinstance(dtype, _Scalar) else dtype
+
+
+class XTensor(torch.Tensor):
+    """``torch.Tensor`` with the numpy spellings the policy bodies use.
+
+    Results of torch ops on an ``XTensor`` are ``XTensor`` again, so a
+    body can chain ``(a & b).astype(xp.int32)``.  Callers turn a policy's
+    answer back into a plain tensor with ``.as_subclass(torch.Tensor)``."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        # torch's default, minus its generality: the routing step runs
+        # ~100 ops an event through here
+        with torch._C.DisableTorchFunctionSubclass():
+            out = func(*args, **(kwargs or {}))
+        return out.as_subclass(cls) if type(out) is torch.Tensor else out
+
+    def astype(self, dtype):
+        return self.to(_dtype(dtype))
+
+    def __getitem__(self, idx):
+        if (isinstance(idx, torch.Tensor) and idx.ndim == 0
+                and idx.dtype != torch.bool):
+            return self.index_select(0, idx.reshape(1)).reshape(
+                self.shape[1:])
+        return super().__getitem__(idx)
+
+
+def asx(t: torch.Tensor) -> XTensor:
+    """View a tensor as an :class:`XTensor` (no copy)."""
+    return t.as_subclass(XTensor)
+
+
+def where(cond, a, b):
+    return torch.where(cond, a, b)
+
+
+def _number(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool)
+
+
+def maximum(a, b):
+    if _number(b):
+        return torch.clamp_min(a, b)
+    if _number(a):
+        return torch.clamp_min(b, a)
+    return torch.maximum(a, b)
+
+
+def mod(a, b):
+    return torch.remainder(a, b)
+
+
+# Reductions over the whole array, as the policy bodies use them.
+
+def sum(x):  # noqa: A001 (numpy's name)
+    return torch.sum(x)
+
+
+def cumsum(x):
+    return torch.cumsum(x.reshape(-1), 0)
+
+
+def argmax(x):
+    return torch.argmax(x.to(torch.uint8) if x.dtype == torch.bool else x)
+
+
+def argmin(x):
+    return torch.argmin(x.to(torch.uint8) if x.dtype == torch.bool else x)

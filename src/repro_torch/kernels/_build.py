@@ -1,0 +1,75 @@
+"""Build the port's CUDA kernels with ``nvcc`` and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
+``nvcc`` builds it in seconds into ``build/kernels/lib<name>.so`` under
+the repository root (listed in ``.gitignore``)::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC -o build/kernels/lib<name>.so <name>.cu
+
+``-fmad=false`` (and no fast math) keeps every float operation as
+written, which the kernels' bitwise contracts rely on.  A library is
+built at first use in a process, and again whenever its source is newer;
+a failed build raises with the compiler's output.  Nothing here runs at
+import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                       "build the port's kernels")
+
+
+@functools.cache
+def build(name: str) -> tuple[Path, str, float]:
+    """Compile ``csrc/<name>.cu`` if its library is missing or stale.
+
+    Returns ``(library path, compiler output, seconds spent building)``;
+    the output holds ``ptxas``'s register and shared-memory report."""
+    src = CSRC / f"{name}.cu"
+    if not src.exists():
+        raise FileNotFoundError(f"no kernel source {src}")
+    lib = BUILD_DIR / f"lib{name}.so"
+    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        return lib, "", 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed to build {src.name} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)   # atomic: a concurrent build never sees half
+    return lib, proc.stdout + proc.stderr, seconds
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, loaded once a process."""
+    return ctypes.CDLL(str(build(name)[0]))

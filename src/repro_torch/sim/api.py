@@ -1,0 +1,69 @@
+"""The front door: ``simulate(scenario, trace)`` (port of
+``repro.sim.api``).
+
+``simulate`` runs on the CUDA device unless the caller passes
+``device="cpu"``; with no card and no ``device`` it raises.  The step
+mode is one of ``STEP_MODES`` (``"gather"``, ``"vmap"``, ``"fused"``),
+all bitwise equal; ``"fused"`` runs the hand-written CUDA kernel of
+``repro_torch.kernels.pool_step`` on a CUDA device and its plain torch
+version on the CPU.  Not ported yet: ``sweep`` (ROADMAP A12), chunked
+runs (A6) and the numpy oracle ``engine="ref"`` (A14).
+"""
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+
+from .._device import resolve_device
+from ..cluster.engine import _simulate_cluster_torch, check_step_mode
+from ..core.types import Trace
+from .result import Result
+from .scenario import Scenario
+
+_ENGINES = ("torch",)
+
+
+def trace_fingerprint(trace) -> str:
+    """Deterministic identity of a trace: blake2s over every array's
+    bytes + dtype + shape (a copy of ``repro.sim.telemetry``'s, so both
+    packages fingerprint a trace alike)."""
+    h = hashlib.blake2s()
+    for name, arr in zip(trace._fields, trace):
+        if arr is None:
+            continue
+        a = np.ascontiguousarray(arr)
+        h.update(name.encode())
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
+             mode: str = "gather", rng_seed: int = 0,
+             chunk_events: int | None = None, device=None) -> Result:
+    """Run one scenario over ``trace`` and return the :class:`Result`.
+
+    ``trace`` is a :class:`repro_torch.core.types.Trace` (a reference
+    trace converts with ``Trace(*reference_trace)``).  ``rng_seed`` fixes
+    the cloud cold-start draws (common random numbers, as the reference
+    draws them).  ``device`` is where the run happens: ``None`` means
+    ``"cuda"``."""
+    if engine == "ref":
+        raise NotImplementedError(
+            "engine='ref' (the numpy oracle) is not in the PyTorch port "
+            "yet (ROADMAP A14)")
+    if engine not in _ENGINES:
+        raise ValueError(f"engine must be one of {_ENGINES}, got {engine!r}")
+    check_step_mode(mode)
+    if chunk_events is not None:
+        raise NotImplementedError(
+            "chunk_events is not in the PyTorch port yet (ROADMAP A6)")
+    dev = resolve_device(device)
+    raw = _simulate_cluster_torch(scenario.to_cluster_config(), trace,
+                                  dev, rng_seed, mode)
+    info = {"engine": engine, "mode": mode, "chunk_events": None,
+            "devices": None, "device": str(dev), "rng_seed": rng_seed,
+            "trace_fingerprint": trace_fingerprint(trace)}
+    return Result(scenario=scenario, raw=raw, run_info=info)

@@ -1,0 +1,149 @@
+"""The one result type every simulation returns (port of
+``repro.sim.result``).
+
+``summary()`` returns every key of the reference's :data:`SUMMARY_KEYS`,
+in order.  The keys of features this slice does not run (autoscaling,
+failures, telemetry, chains, vertical scaling) take the inert values the
+reference reports when the feature is off.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..cluster.metrics import ClusterResult
+from ..core.continuum import ContinuumResult
+from ..core.types import ClassMetrics, SimResult
+from .scenario import Scenario
+
+#: The keys ``summary()`` always returns, in order — the reference's
+#: benchmark-stable contract (see ``repro.sim.result.SUMMARY_KEYS`` for
+#: each key's meaning).
+SUMMARY_KEYS = (
+    "cold_start_pct", "drop_pct", "hit_rate",
+    "small_cold_start_pct", "large_cold_start_pct",
+    "small_drop_pct", "large_drop_pct",
+    "serviceable", "total", "exec_time_s", "serviceable_mean_s",
+    "n_nodes", "offload_pct",
+    "latency_mean_s", "latency_p50_s", "latency_p95_s", "latency_p99_s",
+    "n_epochs", "frac_final_mean", "frac_min", "frac_max",
+    "downtime_pct", "n_invalidated", "n_active_final", "n_active_min",
+    "n_windows",
+    "n_chains", "chain_latency_mean_s", "chain_p95_s",
+    "deadline_miss_pct",
+    "utilization_ratio", "bottleneck_events",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Result:
+    """One simulation run: scenario + per-event outcomes, priced end to
+    end.  ``node``/``outcome`` are i32[T] (routed node; 0 hit / 1 miss /
+    2 drop->cloud), ``latencies`` f64[T] end-to-end seconds and
+    ``per_node`` f64[N, 2, 4] (hits, misses, drops, edge exec time) per
+    (node, size class)."""
+
+    scenario: Scenario
+    raw: ClusterResult
+    #: how this run was executed: engine, mode, device, rng seed and the
+    #: trace fingerprint
+    run_info: dict | None = None
+
+    # -- per-event arrays --------------------------------------------------
+    @property
+    def node(self) -> np.ndarray:
+        return self.raw.node
+
+    @property
+    def outcome(self) -> np.ndarray:
+        return self.raw.outcome
+
+    @property
+    def latencies(self) -> np.ndarray:
+        return self.raw.latencies
+
+    @property
+    def per_node(self) -> np.ndarray:
+        return self.raw.per_node
+
+    def __len__(self) -> int:
+        return len(self.raw.latencies)
+
+    @property
+    def fracs(self) -> np.ndarray:
+        """f32[1, N]: a static scenario is one epoch at ``small_frac``."""
+        return np.asarray([self.scenario.small_frac], np.float32)
+
+    # -- per-class, per-node and latency views -----------------------------
+    def per_class(self) -> SimResult:
+        """Cluster-wide metrics split by size class."""
+        return self.raw.per_class
+
+    @property
+    def overall(self) -> ClassMetrics:
+        return self.raw.edge
+
+    def node_metrics(self, n: int) -> ClassMetrics:
+        return self.raw.node_metrics(n)
+
+    def node_table(self) -> list[dict]:
+        return self.raw.node_table()
+
+    @property
+    def cloud_offloads(self) -> int:
+        return self.raw.cloud_offloads
+
+    @property
+    def offload_pct(self) -> float:
+        return self.raw.offload_pct
+
+    def latency_stats(self) -> dict:
+        """End-to-end latency percentiles: mean/p50/p95/p99 seconds."""
+        return self.raw.latency_stats()
+
+    def as_continuum(self) -> ContinuumResult:
+        return self.raw.as_continuum()
+
+    def as_cluster(self) -> ClusterResult:
+        return self.raw
+
+    # -- the benchmark-stable summary --------------------------------------
+    def summary(self) -> dict:
+        """Every key of :data:`SUMMARY_KEYS`, in order."""
+        s = self.per_class().summary()
+        lat = self.latency_stats()
+        fr = self.fracs
+        # frac stats describe the KiSS nodes' split; unified nodes' inert
+        # small_frac is masked out (all-unified keeps the full view)
+        kiss = [i for i, u in enumerate(self.scenario.unified) if not u]
+        fr = fr[:, kiss] if kiss else fr
+        n = self.scenario.n_nodes
+        s.update({
+            "n_nodes": n,
+            "offload_pct": self.offload_pct,
+            "latency_mean_s": lat["mean_s"],
+            "latency_p50_s": lat["p50_s"],
+            "latency_p95_s": lat["p95_s"],
+            "latency_p99_s": lat["p99_s"],
+            "n_epochs": int(fr.shape[0]),
+            "frac_final_mean": float(fr[-1].mean()),
+            "frac_min": float(fr.min()),
+            "frac_max": float(fr.max()),
+            "downtime_pct": float(np.zeros(n).mean()),
+            "n_invalidated": 0,
+            "n_active_final": n,
+            "n_active_min": n,
+            "n_windows": 0,
+            "n_chains": 0,
+            "chain_latency_mean_s": 0.0,
+            "chain_p95_s": 0.0,
+            "deadline_miss_pct": 0.0,
+            "utilization_ratio": 0.0,
+            "bottleneck_events": 0,
+        })
+        if tuple(s) != SUMMARY_KEYS:
+            raise RuntimeError(
+                f"Result.summary() drifted from SUMMARY_KEYS: "
+                f"{tuple(s)} != {SUMMARY_KEYS}")
+        return s

@@ -1,0 +1,166 @@
+"""Kernel B1 of the PyTorch port: the fused evict-and-place step.
+
+The plain version ``evict_place_plain``, the port's sort composite
+``"lax"`` and the registered ``"fused"`` backend (on CPU tensors) must
+equal the reference's ``_evict_place_lax`` and its Pallas kernel in
+interpret mode, bitwise, on tie-heavy quantized batches.  The CUDA
+kernel itself is held against the plain version on the card (marker
+``cuda``).  The reference is imported inside a fixture, so the file
+also collects where JAX is absent (the GPU host), for the ``cuda`` tests.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.pool import _evict_place_lax as torch_lax
+from repro_torch.core.pool import get_step_backend
+from repro_torch.kernels.pool_step import (MAX_SLOTS, evict_place_cuda,
+                                           evict_place_plain,
+                                           fused_evict_place)
+
+OUTPUTS = ("evict", "freed", "ins", "avail", "empty")
+DTYPES = (torch.bool, torch.float32, torch.int32, torch.float32, torch.bool)
+
+
+def random_batch(rng, p=8, s=24, busy_rows=0, nonpos_rows=0, full=False):
+    """Mirrors ``tests/test_pool_kernel.py::_random_batch``: priorities
+    in {0..3} (heavy ties), distinct seqs, whole-MB sizes; the first
+    ``busy_rows`` rows have no idle slot and the next ``nonpos_rows``
+    rows a deficit <= 0.  ``full`` fills every slot, so a row that
+    evicts nothing has no empty slot."""
+    pri = rng.integers(0, 4, (p, s)).astype(np.float32)
+    seq = rng.permutation(np.arange(1.0, p * s + 1, dtype=np.float32)
+                          ).reshape(p, s)
+    size = rng.integers(1, 64, (p, s)).astype(np.float32)
+    valid = (rng.random((p, s)) < 0.8) | full
+    idle = valid & (rng.random((p, s)) < 0.7)
+    idle[:busy_rows] = False
+    pri = np.where(idle, pri, np.inf).astype(np.float32)
+    deficit = rng.integers(-40, 400, (p,)).astype(np.float32)
+    deficit[busy_rows:busy_rows + nonpos_rows] = -rng.integers(
+        0, 40, nonpos_rows).astype(np.float32)
+    return pri, seq, size, idle, valid, deficit
+
+
+CASES = {
+    "ties-0": dict(seed=0),
+    "ties-1": dict(seed=1),
+    "ties-2": dict(seed=2),
+    "ties-3": dict(seed=3),
+    "ties-4": dict(seed=4),
+    "busy-and-nonpos": dict(seed=5, busy_rows=2, nonpos_rows=3),
+    "ragged-37": dict(seed=6, p=5, s=37, busy_rows=1, nonpos_rows=1),
+    "one-slot": dict(seed=7, p=3, s=1),
+    "wide-300": dict(seed=8, p=4, s=300),
+    "full-pools": dict(seed=9, p=6, s=16, nonpos_rows=3, full=True),
+}
+
+
+def make_case(name):
+    kw = dict(CASES[name])
+    return random_batch(np.random.default_rng(kw.pop("seed")), **kw)
+
+
+def to_torch(args, device):
+    return tuple(torch.tensor(a, device=device) for a in args)
+
+
+def _np(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_same(ref, got, what):
+    """Bitwise on every output; the port's outputs keep the contract's
+    dtypes."""
+    for name, dt, r, g in zip(OUTPUTS, DTYPES, ref, got):
+        if isinstance(g, torch.Tensor):
+            assert g.dtype == dt, (what, name, g.dtype)
+        assert np.array_equal(_np(r), _np(g)), (what, name)
+
+
+@pytest.fixture(scope="module")
+def jax_backends():
+    """The reference's two backends (argsort composite, Pallas kernel in
+    interpret mode), as the reference's own tests run them on CPU."""
+    pool_jax = pytest.importorskip("repro.core.pool_jax")
+    pallas = pytest.importorskip("repro.kernels.pool_step")
+    import jax.numpy as jnp
+
+    def run(args):
+        jargs = tuple(jnp.asarray(a) for a in args)
+        return (pool_jax._evict_place_lax(*jargs),
+                pallas.fused_evict_place_impl(*jargs, interpret=True))
+    return run
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_and_lax_match_both_reference_backends(case, jax_backends):
+    """Bitwise, all five outputs: plain == port lax == reference lax ==
+    reference Pallas kernel (interpret)."""
+    args = make_case(case)
+    ref_lax, ref_pallas = jax_backends(args)
+    assert_same(ref_lax, ref_pallas, "reference lax vs pallas")
+    targs = to_torch(args, "cpu")
+    assert_same(ref_lax, evict_place_plain(*targs), "plain")
+    assert_same(ref_lax, torch_lax(*targs), "lax")
+    assert_same(ref_lax, fused_evict_place(*targs), "fused backend (cpu)")
+
+
+def test_fused_backend_on_cpu_is_the_plain_version():
+    assert get_step_backend("fused") is fused_evict_place
+    targs = to_torch(make_case("ties-0"), "cpu")
+    before = evict_place_cuda.launches
+    fused_evict_place(*targs)
+    assert evict_place_cuda.launches == before   # no kernel on a CPU tensor
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """The kernel's wrapper never falls back: a CPU tensor raises."""
+    targs = to_torch(make_case("ties-0"), "cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        evict_place_cuda(*targs)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU host)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_plain_on_card(case, cuda_device):
+    args = to_torch(make_case(case), cuda_device)
+    before = evict_place_cuda.launches
+    got = evict_place_cuda(*args)
+    torch.cuda.synchronize()
+    assert evict_place_cuda.launches == before + 1
+    assert_same(tuple(t.cpu() for t in evict_place_plain(*args)), got,
+                "kernel vs plain")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 256), (2, 1024), (3, 1000),
+                                   (1, MAX_SLOTS)])
+def test_kernel_matches_plain_at_path_shapes(shape, cuda_device):
+    p, s = shape
+    args = to_torch(random_batch(np.random.default_rng(p * s), p=p, s=s,
+                                 busy_rows=min(1, p - 1)), cuda_device)
+    got = evict_place_cuda(*args)
+    torch.cuda.synchronize()
+    assert_same(tuple(t.cpu() for t in evict_place_plain(*args)), got,
+                f"kernel vs plain {shape}")
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_checks(cuda_device):
+    args = to_torch(make_case("ties-0"), cuda_device)
+    with pytest.raises(ValueError, match="deficit"):
+        evict_place_cuda(*args[:5], args[5].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        evict_place_cuda(args[0].t().contiguous().t(), *args[1:])
+    wide = to_torch(random_batch(np.random.default_rng(0), p=1,
+                                 s=MAX_SLOTS + 1), cuda_device)
+    with pytest.raises(ValueError, match="slots exceed"):
+        evict_place_cuda(*wide)
