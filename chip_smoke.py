@@ -8,28 +8,51 @@ run outside a checkout.  Imports no JAX and nothing of ``repro``.
 Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the kernel from ``src/repro_torch/kernels/csrc`` (timed);
-3. kernels: each kernel against its plain torch version on tie-heavy
-   quantized batches at the main path's shapes and a ragged one, bitwise
-   on every output, then timed per launch with CUDA events;
-4. the main path: the README quickstart's trace, ``edge_trace(seed=0,
-   duration_s=3600)`` (11,215 invocations, 140 functions; stored as
+2. build the three kernels from ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` each, all at once (timed, with ``ptxas``'s report);
+3. kernel B1 against its plain torch version on tie-heavy quantized
+   batches at the simulator's shapes and a ragged one, bitwise on every
+   output, then timed per launch with CUDA events;
+4. kernels B3 (flash attention) and B2 (decode attention) against their
+   plain versions at the serving path's shapes, long shapes and ragged
+   ones, in bf16 (tolerance 2e-2) and f32 (2e-5), absolute and relative,
+   the JAX reference's own ``TOL``; then timed beside the plain version,
+   ``scaled_dot_product_attention`` and the bound;
+5. the simulator path: the first ``SIM_EVENTS`` (4,000) invocations of
+   the README quickstart's trace, ``edge_trace(seed=0, duration_s=3600)``
+   (11,215 invocations, 140 functions; stored as
    ``repro_torch.workloads.quickstart_trace``), through
    ``Scenario.kiss(4096.0)`` (2 pools x 1024 slots) and the 16-node
    ``het16_cluster("size_aware")`` (32 pools x 256 slots) in every step
    mode on the card, under
    ``torch.cuda.set_sync_debug_mode("error")`` (no per-event host sync),
-   with the launch counts zeroed just before and read just after; every
+   with B1's launch count zeroed just before and read just after; every
    mode must give the same per-event ``(node, outcome)`` and match the
    digests of the JAX reference (``GOLDEN``, pinned by
-   ``tests/test_torch_sim.py``); a CPU ``gather`` run must match them too;
-5. the device's busy share over a profiled stretch of the path;
-6. one JSON line of kernel measurements, then ``{"ok": true, ...}``.
+   ``tests/test_torch_sim.py``), bitwise; a CPU ``gather`` run must match
+   them too; then the device's busy share over a profiled stretch;
+6. the serving path at full width: starcoder2-3b and glm4-9b (random
+   bf16 weights from a seed) behind a ``KissServer`` on the card,
+   16 requests through ``launch.serve.run``, with B2's and B3's launch
+   counts zeroed just before and read just after; they must equal the
+   layers times the prefills and decode steps the requests ask for;
+7. eviction: a ``UnifiedServer`` whose pool holds one of the two models
+   at a time; after each eviction the device memory allocated must fall
+   to the resident model's weights (within ``EVICT_MARGIN_MB``);
+8. logits at full width: one ``generate`` of each model (12 prompt
+   tokens, 8 new) against an f32 forward over the whole sequence without
+   a cache, built here from the port's layers and the *plain* attention
+   (see ``LOGITS_TOL``), for starcoder2-3b also with its window cut to
+   16 so that the ring and the window bind;
+9. one JSON line of kernel measurements, one of path numbers, then
+   ``{"ok": true, ...}``.
 
-Tolerance everywhere is bitwise.  Any mismatch or fault exits non-zero.
+Any mismatch or fault exits non-zero; no phase's failure is caught.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import hashlib
 import json
 import subprocess
@@ -42,24 +65,32 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-#: The JAX reference's per-event results on the quickstart trace
-#: (blake2s of the int32 bytes of ``node``/``outcome``; outcome counts
-#: hit/miss/drop) and the trace's fingerprint.
+#: The simulator path runs the first ``SIM_EVENTS`` events of the
+#: quickstart trace (every engine is prefix-consistent, so they are the
+#: first outcomes of the full run); the whole trace took ~6 minutes over
+#: the six card runs and two CPU runs (NVIDIA H100 80GB HBM3, 700.00 W),
+#: which the serving path now shares.
+SIM_EVENTS = 4000
+#: The JAX reference's per-event results on that head (blake2s of the
+#: int32 bytes of ``node``/``outcome``; outcome counts hit/miss/drop) and
+#: the whole trace's fingerprint.
 GOLDEN_TRACE = "5489dd9ada1ec219cdf06755e781cf07e50c73ebc93a9b57c823baf3b67c8a79"
 GOLDEN = {
     "kiss4096": dict(
-        node="38e86a450f4b173d799627da98a5cb91d1f0ec4859c179c575f209f1c4b8f94b",
-        outcome="f505a59d7e0ff83363854ecfddaac3cfb578e3b5147c53f1dbb60ebd1589cbbd",
-        counts=[6783, 2988, 1444]),
+        node="fbe8618d68ab21d81e236baa7571d2ea3787cd0e9352e48ae54334cc4e09e8cf",
+        outcome="d76ef4f75c6c534bd74eba137570561a0fe6332c2a3e0de970a22672e0bb78d3",
+        counts=[2354, 1030, 616]),
     "het16_size_aware": dict(
-        node="5343eaef53911129c43daf12ec35c7272bf9863fe038ddd8286687984cb0f49f",
-        outcome="9f0f67d28a2c7524544c18be9b92b718f71b3e7ec8900d763eb29b1057b19016",
-        counts=[10920, 222, 73]),
+        node="9cfee99709afcaf0110027e0ce2588a70caa239f8f363500feab6dc6df610783",
+        outcome="f25d51137f32672d5f779316014d605b3ba5cdf337ad8e592971fcdd6201281d",
+        counts=[3785, 180, 35]),
 }
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core op/s.
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core op/s,
+#: dense bf16 tensor-core op/s.
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+BF16_OPS_S = 989e12
 
 KERNEL_SHAPES = ((2, 1024), (32, 256), (3, 1000))   # path, path, ragged
 
@@ -133,6 +164,27 @@ def call_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def kernel_ms(fn, names, iters: int = 20) -> dict:
+    """Device milliseconds per call of each ``__global__`` kernel whose
+    name contains one of ``names``, from ``torch.profiler`` over ``iters``
+    calls: the kernels' own run time, without the gaps between launches
+    that the CUDA-event time includes."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key:
+                out[n] = out.get(n, 0.0) + getattr(
+                    e, "self_device_time_total", 0.0) / 1e3 / iters
+    return out
+
+
 def evict_place_bound_ms(p: int, s: int) -> tuple[float, str]:
     """Least time for one evict-and-place at [p, s] on an H100, the
     larger of: the bytes (pri/seq/size f32 and idle/valid 1 B in, evict
@@ -183,6 +235,232 @@ def kernel_phase(dev) -> dict:
     return {"rows": rows}
 
 
+#: Attention tolerance, absolute and relative, the JAX reference's own
+#: ``TOL`` (tests/test_kernels.py:14).
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+#: name: (B, Sq, Skv, H, KV, D, causal, window, q_offset).  "path-*" is
+#: the serving path's prefill (32 tokens, max_batch 2); the long shapes a
+#: whole 4,096-token window.
+FLASH_SHAPES = {
+    "path-starcoder2": (2, 32, 32, 24, 2, 128, True, 4096, 0),
+    "path-glm4": (2, 32, 32, 32, 2, 128, True, None, 0),
+    "long-h24-w4096": (2, 4096, 4096, 24, 2, 128, True, 4096, 0),
+    "long-h24-w1024": (2, 4096, 4096, 24, 2, 128, True, 1024, 0),
+    "long-h32-w4096": (2, 4096, 4096, 32, 2, 128, True, 4096, 0),
+    "long-h32-w1024": (2, 4096, 4096, 32, 2, 128, True, 1024, 0),
+    "ragged-offset": (2, 333, 1000, 24, 2, 128, True, 200, 700),
+    "ragged-d64": (3, 77, 77, 8, 2, 64, True, None, 0),
+}
+#: name: (B, S, H, KV, D, window, fill, cur).  "serving" fills slots
+#: 0..cur, as the serving path's cache is after a 32-token prefill and a
+#: few decode steps; "ring-holes" holds positions cur-S+1..cur at slot
+#: pos % S with every fifth position missing.
+DECODE_SHAPES = {
+    "path-starcoder2": (2, 4096, 24, 2, 128, 4096, "serving", 35),
+    "path-glm4": (2, 4096, 32, 2, 128, None, "serving", 35),
+    "ring-holes-h24-w4096": (2, 4096, 24, 2, 128, 4096, "ring-holes", 6000),
+    "ring-holes-h32-w1024": (2, 4096, 32, 2, 128, 1024, "ring-holes", 6000),
+    "ragged-holes": (3, 1000, 24, 2, 128, None, "holes", 999),
+    "ragged-d64": (2, 300, 12, 2, 64, 100, "holes", 250),
+}
+
+
+def close_check(got, want, dtype, what: str) -> float:
+    """|got - want| <= tol + tol * |want| everywhere; the max abs error."""
+    tol = ATTN_TOL[dtype]
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    err = (g - w).abs()
+    bad = err > tol + tol * w.abs()
+    check(not bool(bad.any()),
+          f"{what}: {int(bad.sum())} elements beyond tolerance {tol} "
+          f"(max abs err {float(err.max()):.3g})")
+    return float(err.max())
+
+
+def flash_bound_ms(b, sq, skv, h, kv, d, causal, window, q_offset,
+                   dtype) -> tuple[float, str]:
+    """Least time for the flash function on an H100: bytes (q, k, v read
+    once, the output written once) over HBM, against the multiply-adds
+    this mask needs (4 * D a visible (query, key) pair and head: QK^T and
+    PV) over the peak for the dtype (bf16 tensor cores, or f32)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    qpos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum())
+    nbytes = item * (2 * b * sq * h * d + 2 * b * skv * kv * d)
+    ops = 4 * d * pairs * b * h
+    rate = BF16_OPS_S if dtype == torch.bfloat16 else F32_OPS_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_bound_ms(q, k_cache, slot_pos, cur, window) -> tuple[float, str]:
+    """Least time for decode attention on an H100: the bytes this run's
+    data needs (slot_pos and cur; q and the output; K and V rows of the
+    visible slots only) over HBM, against 4 * D multiply-adds a visible
+    slot and query head over the peak for the dtype."""
+    b, h, d = q.shape
+    kv = k_cache.shape[2]
+    item = q.element_size()
+    c = cur[:, None]
+    vis = (slot_pos >= 0) & (slot_pos <= c)
+    if window is not None:
+        vis &= slot_pos > c - window
+    n_vis = int(vis.sum())
+    nbytes = (slot_pos.numel() * 4 + b * 4 + 2 * b * h * d * item
+              + n_vis * 2 * kv * d * item)
+    ops = 4 * d * h * n_vis
+    rate = BF16_OPS_S if q.dtype == torch.bfloat16 else F32_OPS_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_case(shape, dtype, dev, seed):
+    b, sq, skv, h, kv, d = shape[:6]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(sh, generator=g, device=dev).to(dtype)
+                 for sh in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+
+
+def decode_case(shape, dtype, dev, seed):
+    b, s, h, kv, d, window, fill, cur = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(sh, generator=g, device=dev).to(dtype)
+               for sh in ((b, h, d), (b, s, kv, d), (b, s, kv, d)))
+    slots = torch.arange(s, device=dev, dtype=torch.int32)
+    if fill == "serving":
+        sp = torch.where(slots <= cur, slots, -1)
+    elif fill == "ring-holes":
+        pos = cur - s + 1 + slots
+        sp = torch.empty_like(slots)
+        sp[pos % s] = torch.where(pos % 5 == 2, -1, pos)
+    else:
+        sp = torch.where(slots % 5 == 2, -1, slots)
+    sp = sp[None].expand(b, s).contiguous()
+    return q, k, v, sp, torch.full((b,), cur, dtype=torch.int32, device=dev)
+
+
+def attention_phase(dev) -> dict:
+    """B3 and B2 against their plain versions in bf16 and f32 at every
+    shape; then, in bf16, timed beside the plain version, one
+    ``scaled_dot_product_attention`` call (GQA, a boolean mask where the
+    window or the cache's slots bind) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain)
+    out = {"flash": [], "decode": []}
+    for name, shape in FLASH_SHAPES.items():
+        b, sq, skv, h, kv, d, causal, window, q_offset = shape
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_case(shape, dtype, dev, sq + h)
+            got = flash_attention_cuda(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            errs[str(dtype)] = close_check(got, want, dtype,
+                                           f"flash {name} {dtype}")
+        iters = 10 if sq >= 1024 else 100
+        ms = device_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters)
+        call = call_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters)
+        plain = device_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                          max(iters // 5, 2))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        qpos = torch.arange(sq, device=dev)[:, None] + q_offset
+        kpos = torch.arange(skv, device=dev)[None, :]
+        if q_offset == 0 and sq == skv and (window is None
+                                            or window >= skv):
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+        else:
+            mask = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+            if window is not None:
+                mask = mask & (kpos > qpos - window)
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - got.float()).abs().max())
+        lib_ms = device_ms(lib, iters)
+        bound, bound_by = flash_bound_ms(*shape, torch.bfloat16)
+        kern = kernel_ms(lambda: flash_attention_cuda(q, k, v, **kw),
+                         ["flash_fwd_kernel"], 5 if sq >= 1024 else 20)
+        out["flash"].append(dict(
+            shape=name, dims=list(shape[:6]), window=window,
+            q_offset=q_offset, max_abs_err=errs, ms=ms, call_ms=call,
+            kernel_ms=kern,
+            plain_ms=plain, library_ms=lib_ms, library_max_abs_diff=lib_err,
+            bound_ms=bound, bound_by=bound_by))
+        print(f"kernel flash_attention {name} {list(shape[:6])} w={window}: "
+              f"== plain (max abs err f32 {errs['torch.float32']:.2e}, bf16 "
+              f"{errs['torch.bfloat16']:.2e}); bf16 device {ms * 1e3:.2f} "
+              f"us/launch ({call * 1e3:.2f} us a call back to back; the "
+              f"kernel itself {fmt_us(kern)}), plain "
+              f"{plain * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.3f} us ({bound_by})", flush=True)
+    for name, shape in DECODE_SHAPES.items():
+        window = shape[5]
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, sp, cur = decode_case(shape, dtype, dev, shape[1])
+            got = decode_attention_cuda(q, k, v, sp, cur, window=window)
+            want = decode_attention_plain(q, k, v, sp, cur, window=window)
+            torch.cuda.synchronize()
+            errs[str(dtype)] = close_check(got, want, dtype,
+                                           f"decode {name} {dtype}")
+        ms = device_ms(lambda: decode_attention_cuda(q, k, v, sp, cur,
+                                                     window=window), 200)
+        call = call_ms(lambda: decode_attention_cuda(q, k, v, sp, cur,
+                                                     window=window), 200)
+        plain = device_ms(lambda: decode_attention_plain(
+            q, k, v, sp, cur, window=window), 20)
+        c = cur[:, None]
+        vis = (sp >= 0) & (sp <= c)
+        if window is not None:
+            vis &= sp > c - window
+        mask = vis[:, None, None, :]
+        q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+
+        def lib():
+            return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = float((lib()[:, :, 0].float() - got.float()).abs().max())
+        lib_ms = device_ms(lib, 200)
+        bound, bound_by = decode_bound_ms(q, k, sp, cur, window)
+        kern = kernel_ms(lambda: decode_attention_cuda(q, k, v, sp, cur,
+                                                       window=window),
+                         ["decode_split_kernel", "decode_combine_kernel"])
+        out["decode"].append(dict(
+            shape=name, dims=list(shape[:5]), window=window, fill=shape[6],
+            visible_slots=int(vis.sum()), max_abs_err=errs, ms=ms,
+            call_ms=call, kernel_ms=kern, plain_ms=plain,
+            library_ms=lib_ms, library_max_abs_diff=lib_err,
+            bound_ms=bound, bound_by=bound_by))
+        print(f"kernel decode_attention {name} {list(shape[:5])} "
+              f"w={window} ({int(vis.sum())} visible slots): == plain (max "
+              f"abs err f32 {errs['torch.float32']:.2e}, bf16 "
+              f"{errs['torch.bfloat16']:.2e}); bf16 device {ms * 1e3:.2f} "
+              f"us/launch ({call * 1e3:.2f} us a call back to back; the "
+              f"kernels themselves {fmt_us(kern)}), plain "
+              f"{plain * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.3f} us ({bound_by})", flush=True)
+    return out
+
+
+def fmt_us(kern: dict) -> str:
+    return ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in kern.items()) \
+        or "not seen by the profiler"
+
+
 def scenarios():
     from repro_torch.cluster.presets import het16_cluster
     from repro_torch.sim import Scenario
@@ -227,6 +505,7 @@ def path_phase(dev, trace) -> dict:
 
     check(trace_fingerprint(trace) == GOLDEN_TRACE,
           "the stored trace differs from the one the reference ran")
+    trace = trace.head(SIM_EVENTS)
     n = len(trace)
     modes = ("gather", "vmap", "fused")
     summaries, rates = {}, {}
@@ -291,6 +570,336 @@ def busy_phase(dev, trace, n_events: int = 200) -> dict:
     return out
 
 
+SERVE_MODELS = ("starcoder2-3b", "glm4-9b")
+SERVE_CKW = dict(max_batch=2, max_len=4096)
+#: The KissServer's budget: both f32 estimates (12,722 and 37,599 MB) fit
+#: their pools, and the threshold puts one model in each class.
+SERVE_BUDGET = dict(total_mb=64_000, small_frac=0.25, threshold_mb=20_000)
+#: How far device memory may sit from the resident model's weights after
+#: an eviction: 64 MB (cuBLAS workspace, small buffers) plus 1 MiB a
+#: weight tensor, since the caching allocator does not split a block it
+#: reuses when less than 1 MiB would remain, and counts that remainder
+#: as allocated.
+EVICT_MARGIN_MB = 64.0
+BLOCK_SLACK_MB = 1.048576
+#: Logits of the bf16 kernel path against the f32 plain forward: the
+#: relative L2 error of each position's logits vector.  bf16 keeps 8
+#: significant bits (a rounding error of 2^-9 each step); over 30-40
+#: layers of bf16 weights and activations the logits drift by 1-2%
+#: (1.15-1.24% for starcoder2-3b and 1.80-1.90% for glm4-9b in this
+#: script's first full run, NVIDIA H100 80GB HBM3, 700.00 W).  5% leaves
+#: room for that, and the control - the same forward without the window
+#: the kernel path applies - is off by 59-79%, so a lost or misplaced
+#: window fails by 10x.  The kernels take no fp16.
+LOGITS_TOL = 0.05
+
+
+def expected_launches(registry, reqs, max_batch: int, results):
+    """Prefills and decode steps per model that the requests ask for, as
+    ``launch.serve.run`` batches them: a drain every ``max_batch``
+    requests, one ``submit`` per model in a drain; a submit that is not
+    dropped prefills once and decodes ``n_new - 1`` times, and a cold
+    start adds the container's warm-up (one prefill, one decode)."""
+    pre = {m: 0 for m in registry}
+    dec = {m: 0 for m in registry}
+    for i in range(0, len(reqs), max_batch):
+        chunk = reqs[i:i + max_batch]
+        for m in dict.fromkeys(r.model_id for r in chunk):
+            group = [r for r in chunk if r.model_id == m]
+            status = results[id(group[0])]
+            if status == "drop":
+                continue
+            warm_up = status == "miss"
+            pre[m] += 1 + warm_up
+            dec[m] += max(r.n_new for r in group) - 1 + warm_up
+    return pre, dec
+
+
+def serving_phase(dev) -> dict:
+    """Full-width starcoder2-3b and glm4-9b behind a KissServer: 16
+    requests through ``launch.serve.run``, with B2's and B3's counts
+    zeroed just before and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.serve import run, synthesize_requests
+    from repro_torch.serving import KissServer
+    registry = {a: get_config(a) for a in SERVE_MODELS}
+    server = KissServer(registry, **SERVE_BUDGET,
+                        container_kwargs=dict(SERVE_CKW, device=dev))
+    check([server.size_class(m) for m in SERVE_MODELS] == [0, 1],
+          "starcoder2-3b must be small and glm4-9b large")
+    reqs = synthesize_requests(registry, 16, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0       # the serving path starts here
+    decode_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    stats = run(server, registry, reqs)
+    wall = time.perf_counter() - t0
+    launches = dict(flash_attention=flash_attention_cuda.launches,
+                    decode_attention=decode_attention_cuda.launches)
+    torch.cuda.synchronize()                # ... and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(r.result is not None for r in reqs),
+          "a request went unanswered")
+    statuses = [r.result.status for r in reqs]
+    check("drop" not in statuses, f"dropped requests: {statuses}")
+    for r in reqs:
+        t = r.result.tokens
+        check(t.shape == (1, r.n_new) and ((t >= 0) & (
+            t < registry[r.model_id].vocab_size)).all(),
+            f"{r.model_id}: tokens {t}")
+    pre, dec = expected_launches(registry, reqs, 2,
+                                 {id(r): r.result.status for r in reqs})
+    want = dict(
+        flash_attention=sum(registry[m].n_layers * pre[m] for m in pre),
+        decode_attention=sum(registry[m].n_layers * dec[m] for m in dec))
+    check(launches == want and min(launches.values()) > 0,
+          f"kernel launches {launches} != layers x requests {want}")
+    print(f"serve KissServer {SERVE_BUDGET} "
+          f"on {dev}: {len(reqs)} requests in {wall:.2f} s, statuses "
+          f"{ {k: statuses.count(k) for k in ('hit', 'miss', 'drop')} }, "
+          f"prefills {pre}, decode steps {dec}; launches {launches} == "
+          f"layers x requests; peak {peak_gb:.2f} GB", flush=True)
+    for c, name in ((0, "small"), (1, "large")):
+        m = server.stats.cls(c)
+        print(f"serve ClassMetrics {name}: hits {m.hits}, misses "
+              f"{m.misses}, drops {m.drops}, cold-start "
+              f"{m.cold_start_pct:.1f}%", flush=True)
+    models = {}
+    for m in SERVE_MODELS:
+        c = server.containers[m]
+        warm = [r.result.latency_s for r in reqs
+                if r.model_id == m and r.result.status == "hit"]
+        prompt = np.zeros((2, 12), np.int32)
+        steps = min(64, c.max_len - c.prefill_len - 1)
+        c.generate(prompt, 2)
+        times = {}
+        for n_new in (1, 1 + steps):
+            t0 = time.perf_counter()
+            c.generate(prompt, n_new)
+            times[n_new] = time.perf_counter() - t0
+        tok_s = c.max_batch * steps / (times[1 + steps] - times[1])
+        models[m] = dict(cold_start_s=c.cold_start_s,
+                         mean_warm_ms=1e3 * float(np.mean(warm))
+                         if warm else None, n_warm=len(warm),
+                         decode_tokens_s=tok_s, size_mb=c.size_mb)
+        print(f"serve {m}: cold start {c.cold_start_s:.2f} s, mean warm "
+              f"{models[m]['mean_warm_ms']} ms over {len(warm)} hits, "
+              f"decode {tok_s:.1f} tokens/s at batch 2, size "
+              f"{c.size_mb:.1f} MB", flush=True)
+    busy = serving_busy(server.containers[SERVE_MODELS[0]])
+    sizes = {m: server.size_mb(m) for m in SERVE_MODELS}
+    return dict(stats=stats, wall_s=wall, launches=launches,
+                expected=want, models=models, sizes=sizes,
+                peak_gb=peak_gb, busy=busy)
+
+
+def serving_busy(container, n_new: int = 9) -> dict:
+    """Device busy share of one warm ``generate`` (a prefill and
+    ``n_new - 1`` decode steps at batch 2): summed device time of every
+    kernel and copy the profiler saw, over the host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    prompt = np.zeros((container.max_batch, 12), np.int32)
+    container.generate(prompt, n_new)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        container.generate(prompt, n_new)
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0.0)
+    events = prof.key_averages()
+    top = sorted(events, key=dev_us, reverse=True)[:4]
+    share = sum(dev_us(e) for e in events) / 1e6 / wall
+    print(f"serve busy {container.cfg.name}: device busy "
+          f"{100 * share:.1f}% of {wall * 1e3:.1f} ms wall for a prefill "
+          f"and {n_new - 1} decode steps; top device time: " + "; ".join(
+              f"{e.key[:40]} {dev_us(e) / 1e3:.2f} ms" for e in top),
+          flush=True)
+    return dict(share=share, wall_s=wall,
+                top=[(e.key, dev_us(e) / 1e3) for e in top])
+
+
+def eviction_phase(dev, sizes: dict) -> dict:
+    """A UnifiedServer that holds one model at a time; every request
+    after the first evicts the other model, and the memory allocated on
+    the device must fall to the resident model's weights.  The server
+    starts from the sizes the serving phase measured: with the f32
+    estimates only (12,722 and 37,599 MB) a pool that takes glm4-9b's
+    first instantiation would, once the sizes refine to the real bf16
+    footprints, hold both models."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import UnifiedServer, pytree_mb
+    registry = {a: get_config(a) for a in SERVE_MODELS}
+    total = max(sizes.values()) + min(sizes.values()) / 2
+    check(max(sizes.values()) <= total < sum(sizes.values()),
+          f"sizes {sizes} do not make a one-model pool of {total} MB")
+    server = UnifiedServer(registry, total_mb=total,
+                           threshold_mb=SERVE_BUDGET["threshold_mb"],
+                           container_kwargs=dict(SERVE_CKW, device=dev))
+    server._size_cache.update(sizes)
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    prompt = np.zeros((1, 12), np.int32)
+    rows = []
+    for i, m in enumerate(SERVE_MODELS * 3):
+        res = server.submit(m, prompt, n_new=2, now=float(i))
+        victims = [server._id_to_model(v.func_id)
+                   for v in server.pool.last_victims]
+        check(res.status == "miss", f"request {i} ({m}): {res.status}")
+        check(victims == ([] if i == 0 else [SERVE_MODELS[(i + 1) % 2]]),
+              f"request {i} ({m}) evicted {victims}")
+        check(list(server.containers) == [m], f"resident: "
+              f"{list(server.containers)}")
+        alloc_mb = (torch.cuda.memory_allocated() - base) / 1e6
+        weights_mb = pytree_mb(server.containers[m].params)
+        margin = EVICT_MARGIN_MB + BLOCK_SLACK_MB * n_tensors(
+            server.containers[m].params)
+        check(abs(alloc_mb - weights_mb) <= margin,
+              f"after request {i} ({m}, evicted {victims}) {alloc_mb:.1f} "
+              f"MB allocated, the resident weights are {weights_mb:.1f} MB "
+              f"(margin {margin:.1f} MB)")
+        rows.append(dict(model=m, evicted=victims, allocated_mb=alloc_mb,
+                         weights_mb=weights_mb, margin_mb=margin))
+        print(f"evict request {i}: {m} cold, evicted {victims}; device "
+              f"memory allocated {alloc_mb:.1f} MB, resident weights "
+              f"{weights_mb:.1f} MB (margin {margin:.1f} MB)", flush=True)
+    del server
+    return {"rows": rows}
+
+
+def n_tensors(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(n_tensors(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(n_tensors(v) for v in tree)
+    return 1
+
+
+def f32_forward(cfg, params, tokens, window):
+    """Logits f32 [B, S, V] of the whole sequence with no cache: the
+    port's layers with every weight cast to f32 a layer at a time, and
+    the plain attention."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.layers import dense, embed, mlp, norm
+    from repro_torch.models.rope import apply_rope, rope_angles
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    b, s = tokens.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
+    ang = rope_angles(pos.expand(b, s), hd, cfg.rope_theta)
+    x = embed(params["embed"], tokens.long(), torch.float32)
+    for lp in params["layers"]:
+        lp = f32(lp)
+        z = norm(lp["ln1"], x, cfg.norm_eps)
+        a = lp["attn"]
+        q = apply_rope(dense(a["wq"], z).reshape(b, s, h, hd), ang)
+        k = apply_rope(dense(a["wk"], z).reshape(b, s, kv, hd), ang)
+        v = dense(a["wv"], z).reshape(b, s, kv, hd)
+        o = flash_attention_plain(q, k, v, causal=True, window=window)
+        x = x + dense(a["wo"], o.reshape(b, s, h * hd))
+        x = x + mlp(lp["mlp"], norm(lp["ln2"], x, cfg.norm_eps), cfg.act)
+    x = norm(f32(params["final_norm"]), x, cfg.norm_eps)
+    return dense(f32(params["lm_head"]), x)
+
+
+def rel_errors(got, want) -> list[float]:
+    """Per position: ||got - want|| / ||want|| over the vocabulary."""
+    return [float((g - w).norm() / w.norm()) for g, w in zip(got, want)]
+
+
+def logits_phase(dev) -> dict:
+    """One generate of each model against the f32 forward (see
+    ``LOGITS_TOL``); starcoder2-3b also with its window cut to 16, where
+    the same forward without the window must fail the tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ModelContainer
+    out = {}
+    for arch in SERVE_MODELS:
+        cfg = get_config(arch)
+        variants = {arch: cfg}
+        if cfg.sliding_window:
+            variants[f"{arch} window 16"] = dataclasses.replace(
+                cfg, sliding_window=16)
+        for name, cfgv in variants.items():
+            c = ModelContainer(cfgv, seed=1, device=dev, **SERVE_CKW)
+            prompt = np.random.default_rng(12).integers(
+                0, cfg.vocab_size, (1, 12)).astype(np.int32)
+            tokens, logits = c.generate_with_logits(prompt, 8)
+            s = c.prefill_len
+            seq = np.zeros((1, s + 7), np.int32)
+            seq[0, :12] = prompt[0]
+            seq[0, s:] = tokens[0, :7]
+            seq = torch.from_numpy(seq).to(dev)
+            with torch.no_grad():
+                want = f32_forward(cfgv, c.params, seq, cfgv.sliding_window)
+            errs = rel_errors(logits[0], want[0, s - 1:])
+            row = dict(rel_l2=errs, max_abs_err=float(
+                (logits[0] - want[0, s - 1:]).abs().max()),
+                logit_scale=float(want[0, s - 1:].abs().max()))
+            if cfgv.sliding_window and cfgv.sliding_window < s + 7:
+                nowin = f32_forward(cfgv, c.params, seq, None)
+                row["rel_l2_without_window"] = rel_errors(
+                    logits[0], nowin[0, s - 1:])
+            out[name] = row
+            print(f"logits {name}: bf16 kernel path vs f32 plain forward, "
+                  f"relative L2 per position "
+                  f"{[round(e, 5) for e in errs]} (tolerance {LOGITS_TOL}),"
+                  f" max abs err {row['max_abs_err']:.4f} of logits up to "
+                  f"{row['logit_scale']:.2f}" + (
+                      "; without the window " + str(
+                          [round(e, 4) for e in row[
+                              "rel_l2_without_window"]])
+                      if "rel_l2_without_window" in row else ""),
+                  flush=True)
+            check(max(errs) <= LOGITS_TOL,
+                  f"{name}: logits off by {max(errs):.4f} > {LOGITS_TOL}")
+            if "rel_l2_without_window" in row:
+                check(min(row["rel_l2_without_window"]) > LOGITS_TOL,
+                      f"{name}: the f32 forward without the window is "
+                      f"within {LOGITS_TOL} of the windowed kernel path")
+            del c, logits, want
+            gc.collect()
+    return out
+
+
+def build_phase(_build) -> None:
+    """Build every kernel, one ``nvcc`` each, all started together."""
+    from repro_torch.kernels import decode_attention, flash_attention
+    jobs = [("pool_step", _build.NVCC_FLAGS), flash_attention.BUILD,
+            decode_attention.BUILD]
+    _build.build.cache_clear()
+    t0 = time.perf_counter()
+    built = _build.build_parallel(jobs)
+    print(f"build: {len(jobs)} kernels in {time.perf_counter() - t0:.2f} s "
+          "(one nvcc each, in parallel)")
+    for (name, _), (lib, log, build_s) in zip(jobs, built):
+        print(f"build {name}: {lib.name}, nvcc {build_s:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+
+def attention_entry(name, source, replaces, rows, main_shape, launches,
+                    cuda_kernels):
+    main_row = next(r for r in rows if r["shape"] == main_shape)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, cuda_kernels=cuda_kernels,
+                cuda_kernel_launches=len(cuda_kernels) * launches,
+                max_abs_err=max(max(r["max_abs_err"].values())
+                                for r in rows),
+                ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                bound_ms=main_row["bound_ms"],
+                bound_by=main_row["bound_by"],
+                library_ms=main_row["library_ms"], shape=main_shape,
+                dtype="bfloat16", per_shape=rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -302,46 +911,66 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repo ({e})",
               file=sys.stderr)
         return 2
+    # f32 products in full f32: the references below are f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
-
-    t0 = time.perf_counter()
-    _build.build.cache_clear()
-    lib, log, build_s = _build.build("pool_step")
-    print(f"build pool_step: {lib.name} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {build_s:.2f} s)")
-    for line in log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    t_start = time.perf_counter()
+    build_phase(_build)
 
     kernels = kernel_phase(dev)
+    attention = attention_phase(dev)
     from repro_torch.workloads import quickstart_trace
     trace = quickstart_trace()
     path = path_phase(dev, trace)
     busy = busy_phase(dev, trace)
+    serving = serving_phase(dev)
+    eviction = eviction_phase(dev, serving["sizes"])
+    logits = logits_phase(dev)
 
     main_row = kernels["rows"][0]            # [2, 1024]: Scenario.kiss
-    entry = dict(name="pool_step.evict_place", route="cuda",
-                 source="src/repro_torch/kernels/csrc/pool_step.cu",
-                 replaces="src/repro/kernels/pool_step.py:41",
-                 launches=path["launches"],
-                 # each wrapper launch runs these two __global__ kernels
-                 cuda_kernels=["rank_kernel", "reduce_kernel"],
-                 cuda_kernel_launches=2 * path["launches"],
-                 max_abs_err=max(r["max_abs_err"] for r in kernels["rows"]),
-                 ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-                 bound_ms=main_row["bound_ms"],
-                 bound_by=main_row["bound_by"], library_ms=None,
-                 shape=main_row["shape"], per_shape=kernels["rows"])
-    print('kernels: ["pool_step.evict_place"]')
-    print(json.dumps({"kernels": [entry]}))
-    print(json.dumps({"events_per_s": {
-        f"{k[0]}/{k[1]}": v for k, v in path["rates"].items()},
-        "device_busy_share": busy, "card": card}))
+    entries = [dict(name="pool_step.evict_place", route="cuda",
+                    source="src/repro_torch/kernels/csrc/pool_step.cu",
+                    replaces="src/repro/kernels/pool_step.py:43",
+                    launches=path["launches"],
+                    # each wrapper launch runs these two __global__ kernels
+                    cuda_kernels=["rank_kernel", "reduce_kernel"],
+                    cuda_kernel_launches=2 * path["launches"],
+                    max_abs_err=max(r["max_abs_err"]
+                                    for r in kernels["rows"]),
+                    ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                    bound_ms=main_row["bound_ms"],
+                    bound_by=main_row["bound_by"], library_ms=None,
+                    shape=main_row["shape"], per_shape=kernels["rows"]),
+               attention_entry(
+                   "flash_attention",
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:26",
+                   attention["flash"], "path-starcoder2",
+                   serving["launches"]["flash_attention"],
+                   ["flash_fwd_kernel"]),
+               attention_entry(
+                   "decode_attention",
+                   "src/repro_torch/kernels/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:30",
+                   attention["decode"], "path-starcoder2",
+                   serving["launches"]["decode_attention"],
+                   ["decode_split_kernel", "decode_combine_kernel"])]
+    print("kernels: " + json.dumps([e["name"] for e in entries]))
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({
+        "events_per_s": {f"{k[0]}/{k[1]}": v
+                         for k, v in path["rates"].items()},
+        "device_busy_share": busy,
+        "serving": {k: serving[k] for k in ("stats", "wall_s", "models",
+                                            "peak_gb", "busy")},
+        "eviction": eviction["rows"], "logits": logits,
+        "seconds": time.perf_counter() - t_start, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""repro_torch — the KiSS warm-pool simulator on PyTorch and CUDA.
+"""repro_torch — the KiSS warm-pool simulator and its model server on
+PyTorch and CUDA.
 
 A port of the JAX package ``repro`` that keeps its module layout and
 public names, so each module here has a counterpart there::
@@ -14,10 +15,19 @@ Entry points run on the CUDA device unless the caller passes
 This package imports neither JAX nor ``repro``: the host-side numpy
 code it shares with the reference is copied, not imported.
 
-Ported so far: the static (resize-off) ``simulate`` path in the
-``"gather"``, ``"vmap"`` and ``"fused"`` step modes, with the fused
-evict-and-place step written as a CUDA kernel
-(``repro_torch.kernels.pool_step``).
+Ported so far:
+
+* the static (resize-off) ``simulate`` path in the ``"gather"``,
+  ``"vmap"`` and ``"fused"`` step modes, with the fused evict-and-place
+  step written as a CUDA kernel (``repro_torch.kernels.pool_step``);
+* the dense serving path: ``serving.KissServer``/``UnifiedServer`` manage
+  real model containers (``models``: the decoder-only transformer for
+  the dense configs of ``configs``) in the paper's warm pools
+  (``core.pool_ref.WarmPool``), with prefill attention and decode
+  attention written as CUDA kernels (``repro_torch.kernels``), driven by
+  ``python -m repro_torch.launch.serve``; ``checkpoint`` carries the JAX
+  package's weights across.  MoE, SSM/hybrid, VLM and whisper models
+  raise until their slices land.
 """
 from ._device import resolve_device
 

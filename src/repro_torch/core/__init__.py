@@ -1,7 +1,7 @@
 """Core of the port: types, policy registries, the torch ``xp``
 namespace, the continuum config and the warm pool."""
-from .types import (DROP, HIT, LARGE, MISS, SMALL, ClassMetrics, Policy,
-                    PoolConfig, SimResult, Trace)
+from .types import (DROP, HIT, LARGE, MISS, SMALL, ClassMetrics, KissConfig,
+                    Policy, PoolConfig, SimResult, Trace)
 from .registry import (REPLACEMENT, ROUTING, PolicySpec, RouteCtx,
                        SlotStats, register_replacement, register_routing,
                        replacement_policies, routing_policies)
@@ -9,7 +9,7 @@ from .continuum import ClusterConfig, ContinuumResult, RoutingPolicy
 
 __all__ = [
     "DROP", "HIT", "LARGE", "MISS", "SMALL", "ClassMetrics",
-    "ClusterConfig", "ContinuumResult", "Policy", "PolicySpec",
+    "ClusterConfig", "ContinuumResult", "KissConfig", "Policy", "PolicySpec",
     "PoolConfig", "REPLACEMENT", "ROUTING", "RouteCtx", "RoutingPolicy",
     "SimResult", "SlotStats", "Trace", "register_replacement",
     "register_routing", "replacement_policies", "routing_policies",

@@ -77,12 +77,45 @@ class Trace(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class PoolConfig:
-    """One warm pool (the static, resize-off fields of the reference's
-    ``PoolConfig``)."""
+    """One warm pool.  ``resize_policy`` (vertical scaling) must stay
+    ``None`` until ROADMAP A11 ports the resize registry."""
 
     capacity_mb: float
     policy: Policy = Policy.LRU
     max_slots: int = 1024  # fixed slot count of the pool state
+    resize_policy: int | None = None
+    resize_min_mb: float = 0.0
+
+    def __post_init__(self):
+        if self.resize_policy is not None:
+            raise NotImplementedError(
+                "PoolConfig(resize_policy=...): vertical scaling is "
+                "ROADMAP A11, not yet ported")
+
+
+@dataclasses.dataclass(frozen=True)
+class KissConfig:
+    """The paper's policy: two pools split by a static ratio (default 80-20)
+    with a container-size threshold classifier (default 225 MB, §2.5.1)."""
+
+    total_mb: float
+    small_frac: float = 0.8
+    threshold_mb: float = 225.0
+    policy: Policy = Policy.LRU
+    # Optional per-pool policy override (policy independence experiments).
+    small_policy: Policy | None = None
+    large_policy: Policy | None = None
+    max_slots: int = 1024
+
+    @property
+    def small_pool(self) -> PoolConfig:
+        return PoolConfig(self.total_mb * self.small_frac,
+                          self.small_policy or self.policy, self.max_slots)
+
+    @property
+    def large_pool(self) -> PoolConfig:
+        return PoolConfig(self.total_mb * (1.0 - self.small_frac),
+                          self.large_policy or self.policy, self.max_slots)
 
 
 @dataclasses.dataclass

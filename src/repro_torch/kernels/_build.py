@@ -8,10 +8,13 @@ the repository root (listed in ``.gitignore``)::
          -shared -Xcompiler -fPIC -o build/kernels/lib<name>.so <name>.cu
 
 ``-fmad=false`` (and no fast math) keeps every float operation as
-written, which the kernels' bitwise contracts rely on.  A library is
-built at first use in a process, and again whenever its source is newer;
-a failed build raises with the compiler's output.  Nothing here runs at
-import time.
+written, which B1's bitwise contract relies on; those are the default
+flags.  A kernel with no bitwise contract (attention) passes its own,
+:data:`ATTENTION_FLAGS`, which let ``nvcc`` contract into FMA.  A library
+is built at first use in a process, and again whenever its source is
+newer; a failed build raises with the compiler's output.
+:func:`build_parallel` starts one ``nvcc`` per source at once.  Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -29,6 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+ATTENTION_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
 
 
 def _nvcc() -> str:
@@ -43,8 +48,10 @@ def _nvcc() -> str:
 
 
 @functools.cache
-def build(name: str) -> tuple[Path, str, float]:
-    """Compile ``csrc/<name>.cu`` if its library is missing or stale.
+def build(name: str, flags: tuple[str, ...] = NVCC_FLAGS
+          ) -> tuple[Path, str, float]:
+    """Compile ``csrc/<name>.cu`` with ``flags`` if its library is missing
+    or stale.
 
     Returns ``(library path, compiler output, seconds spent building)``;
     the output holds ``ptxas``'s register and shared-memory report."""
@@ -58,7 +65,7 @@ def build(name: str) -> tuple[Path, str, float]:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(src)],
                           capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -69,7 +76,15 @@ def build(name: str) -> tuple[Path, str, float]:
     return lib, proc.stdout + proc.stderr, seconds
 
 
+def build_parallel(jobs) -> list[tuple[Path, str, float]]:
+    """:func:`build` each ``(name, flags)`` of ``jobs`` at once, one
+    ``nvcc`` process each; results in the order of ``jobs``."""
+    jobs = list(jobs)
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        return list(pool.map(lambda job: build(*job), jobs))
+
+
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, flags: tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, loaded once a process."""
-    return ctypes.CDLL(str(build(name)[0]))
+    return ctypes.CDLL(str(build(name, flags)[0]))

@@ -1,0 +1,307 @@
+"""Kernels B2 (decode attention) and B3 (flash attention) of the PyTorch
+port.
+
+On the CPU the port's plain versions are held against the reference's
+oracles (``repro.kernels.ref``) and its Pallas kernels in interpret mode,
+as ``tests/test_kernels.py`` runs them, at a few of its shapes (MQA, GQA,
+a window, ragged lengths, holes in the cache).  The tolerance is the
+reference's own ``TOL``: 2e-5 in f32, 2e-2 in bf16 (absolute and
+relative).  On the card (marker ``cuda``) each CUDA kernel is held
+against its plain version at the same tolerances.  The reference is
+imported inside fixtures, so the file also collects where JAX is absent.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import (
+    decode_attention_cuda, decode_attention_plain)
+from repro_torch.kernels.decode_attention import \
+    check_inputs as decode_check
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda, flash_attention_plain)
+from repro_torch.kernels.flash_attention import check_inputs as flash_check
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def flash_inputs(seed, b, sq, skv, h, kv, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d), np.float32),
+            rng.standard_normal((b, skv, kv, d), np.float32),
+            rng.standard_normal((b, skv, kv, d), np.float32))
+
+
+def decode_inputs(seed, b, s, h, kv, d, cur=None):
+    """Cache with holes (every 5th slot empty), as the reference's sweep
+    has them; ``cur`` defaults to the middle of the cache."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, d), np.float32)
+    kc = rng.standard_normal((b, s, kv, d), np.float32)
+    vc = rng.standard_normal((b, s, kv, d), np.float32)
+    sp = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy()
+    sp[sp % 5 == 2] = -1
+    cur = np.full((b,), s // 2 if cur is None else cur, np.int32)
+    return q, kc, vc, sp, cur
+
+
+def to_torch(arrays, dtype, device="cpu"):
+    """Float arrays in ``dtype`` (rounded from f32 as JAX rounds), int
+    arrays as they are."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        out.append(t.to(TORCH_DTYPE[dtype]) if t.is_floating_point() else t)
+    return out
+
+
+def close(got, want, dtype):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def as_np(t: torch.Tensor):
+    return t.detach().float().cpu().numpy()
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's oracles and Pallas kernels (interpret mode)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ref as oracle
+    from repro.kernels.decode_attention import decode_attention_pallas
+    from repro.kernels.flash_attention import flash_attention_pallas
+
+    def j(arrays, dtype):
+        return [jnp.asarray(a, getattr(jnp, dtype))
+                if a.dtype == np.float32 else jnp.asarray(a)
+                for a in arrays]
+    return dict(oracle=oracle, flash_pallas=flash_attention_pallas,
+                decode_pallas=decode_attention_pallas, j=j)
+
+
+FLASH_CASES = {   # name: (b, sq, skv, h, kv, d, causal, window, q_offset)
+    "mqa": (1, 128, 128, 4, 1, 64, True, None, 0),
+    "gqa-window": (2, 256, 256, 8, 2, 64, True, 96, 0),
+    "wide-noncausal": (1, 128, 128, 4, 4, 128, False, None, 0),
+    "ragged-offset": (2, 37, 70, 6, 2, 64, True, 40, 33),
+}
+DECODE_CASES = {  # name: (b, s, h, kv, d, window)
+    "gqa": (2, 1024, 8, 2, 64, None),
+    "mqa-ring": (2, 1024, 8, 1, 128, 600),
+    "ragged-window": (3, 300, 12, 2, 64, 100),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_plain_matches_reference_oracle(case, dtype, ref):
+    b, sq, skv, h, kv, d, causal, window, q_offset = FLASH_CASES[case]
+    arrays = flash_inputs(1, b, sq, skv, h, kv, d)
+    want = ref["oracle"].flash_attention(*ref["j"](arrays, dtype),
+                                         causal=causal, window=window,
+                                         q_offset=q_offset)
+    got = flash_attention_plain(*to_torch(arrays, dtype), causal=causal,
+                                window=window, q_offset=q_offset)
+    assert got.dtype == TORCH_DTYPE[dtype] and got.shape == (b, sq, h, d)
+    close(as_np(got), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["mqa", "gqa-window"])
+def test_flash_plain_matches_pallas_interpret(case, dtype, ref):
+    b, sq, skv, h, kv, d, causal, window, q_offset = FLASH_CASES[case]
+    arrays = flash_inputs(2, b, sq, skv, h, kv, d)
+    want = ref["flash_pallas"](*ref["j"](arrays, dtype), causal=causal,
+                               window=window, interpret=True)
+    got = ops.flash_attention(*to_torch(arrays, dtype), causal=causal,
+                              window=window)
+    close(as_np(got), want, dtype)
+
+
+def test_flash_plain_query_chunks_agree():
+    """The query-chunked path equals one block over all queries."""
+    arrays = to_torch(flash_inputs(3, 1, 300, 300, 4, 2, 64), "float32")
+    one = flash_attention_plain(*arrays, window=50)
+    chunked = flash_attention_plain(*arrays, window=50, chunk=64)
+    close(as_np(chunked), as_np(one), "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_plain_matches_reference_oracle(case, dtype, ref):
+    b, s, h, kv, d, window = DECODE_CASES[case]
+    arrays = decode_inputs(4, b, s, h, kv, d)
+    want = ref["oracle"].decode_attention(*ref["j"](arrays, dtype),
+                                          window=window)
+    got = decode_attention_plain(*to_torch(arrays, dtype), window=window)
+    assert got.dtype == TORCH_DTYPE[dtype] and got.shape == (b, h, d)
+    close(as_np(got), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["gqa", "mqa-ring"])
+def test_decode_plain_matches_pallas_interpret(case, dtype, ref):
+    b, s, h, kv, d, window = DECODE_CASES[case]
+    arrays = decode_inputs(5, b, s, h, kv, d)
+    want = ref["decode_pallas"](*ref["j"](arrays, dtype), window=window,
+                                interpret=True, block_s=256)
+    got = ops.decode_attention(*to_torch(arrays, dtype), window=window)
+    close(as_np(got), want, dtype)
+
+
+def test_decode_plain_row_with_no_visible_slot(ref):
+    """A row that sees no slot gets the reference's uniform softmax (the
+    mean of every V row), not zeros or NaN."""
+    arrays = list(decode_inputs(6, 2, 256, 4, 2, 64))
+    arrays[3][1] = -1                     # sequence 1: an empty cache
+    want = ref["oracle"].decode_attention(*ref["j"](arrays, "float32"))
+    got = decode_attention_plain(*to_torch(arrays, "float32"))
+    close(as_np(got), want, "float32")
+    assert np.isfinite(as_np(got)).all()
+
+
+def test_cpu_tensors_take_the_plain_version_only():
+    fa = to_torch(flash_inputs(7, 1, 16, 16, 2, 1, 64), "float32")
+    da = to_torch(decode_inputs(7, 1, 64, 2, 1, 64), "float32")
+    before = (flash_attention_cuda.launches, decode_attention_cuda.launches)
+    ops.flash_attention(*fa)
+    ops.decode_attention(*da)
+    assert (flash_attention_cuda.launches,
+            decode_attention_cuda.launches) == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(*fa)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        decode_attention_cuda(*da)
+    with pytest.raises(ValueError, match="no attention"):
+        ops.flash_attention(*(t.to("meta") for t in fa))
+
+
+def test_scan_kernels_raise_until_ported():
+    with pytest.raises(NotImplementedError, match="B4"):
+        ops.ssm_scan()
+    with pytest.raises(NotImplementedError, match="B5"):
+        ops.wkv6()
+
+
+def test_kernel_input_checks():
+    """What the wrappers refuse, checked before any launch."""
+    q, k, v = to_torch(flash_inputs(8, 1, 16, 16, 2, 1, 64), "float32")
+    flash_check(q, k, v, True, None, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_check(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                    v[..., :32].contiguous(), True, None, 0)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_check(q, k.double(), v, True, None, 0)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_check(q.half(), k.half(), v.half(), True, None, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_check(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                    True, None, 0)
+    with pytest.raises(ValueError, match="sees no key"):
+        flash_check(q, k, v, True, 4, 20)
+    dq, dk, dv, sp, cur = to_torch(decode_inputs(8, 1, 64, 2, 1, 64),
+                                   "bfloat16")
+    decode_check(dq, dk, dv, sp, None)
+    with pytest.raises(ValueError, match="slot_pos"):
+        decode_check(dq, dk, dv, sp.long(), None)
+    with pytest.raises(ValueError, match="dtypes"):
+        decode_check(dq.float(), dk, dv, sp, None)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_check(dq[..., :48].contiguous(), dk[..., :48].contiguous(),
+                     dv[..., :48].contiguous(), sp, None)
+    odd = torch.empty(dk.numel() + 1, dtype=dk.dtype)[1:].view(dk.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        decode_check(dq, odd, dv, sp, None)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU host)")
+    return torch.device("cuda")
+
+
+CARD_FLASH = dict(FLASH_CASES, **{
+    "path-starcoder2": (2, 32, 32, 24, 2, 128, True, 4096, 0),
+    "path-glm4": (2, 32, 32, 32, 2, 128, True, None, 0),
+    "ragged-long": (1, 333, 1000, 8, 2, 128, True, 200, 700),
+    "one-row": (3, 1, 65, 4, 2, 64, True, None, 64),
+})
+CARD_DECODE = dict(DECODE_CASES, **{
+    "path-starcoder2": (2, 4096, 24, 2, 128, 4096),
+    "path-glm4": (2, 4096, 32, 2, 128, None),
+    "ragged-one-slot": (1, 1, 4, 4, 64, None),
+    "mqa-48": (2, 777, 48, 1, 128, None),
+    "serving-fill": (2, 4096, 24, 2, 128, 4096),
+    "40-chunks": (1, 5000, 8, 2, 64, None),
+})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CARD_FLASH))
+def test_flash_kernel_matches_plain_on_card(case, dtype, cuda_device):
+    b, sq, skv, h, kv, d, causal, window, q_offset = CARD_FLASH[case]
+    args = to_torch(flash_inputs(9, b, sq, skv, h, kv, d), dtype,
+                    cuda_device)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(*args, causal=causal, window=window,
+                              q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == args[0].dtype and got.shape == args[0].shape
+    want = flash_attention_plain(*args, causal=causal, window=window,
+                                 q_offset=q_offset)
+    close(as_np(got), as_np(want), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CARD_DECODE))
+def test_decode_kernel_matches_plain_on_card(case, dtype, cuda_device):
+    b, s, h, kv, d, window = CARD_DECODE[case]
+    arrays = list(decode_inputs(10, b, s, h, kv, d, cur=max(s - 3, 0)))
+    if case == "serving-fill":            # slots 0..35 filled, as served
+        arrays[3][:, 36:] = -1
+    if b > 1:
+        arrays[3][-1] = -1                # last sequence: nothing visible
+    args = to_torch(arrays, dtype, cuda_device)
+    before = decode_attention_cuda.launches
+    got = ops.decode_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1
+    assert got.dtype == args[0].dtype and got.shape == args[0].shape
+    want = decode_attention_plain(*args, window=window)
+    close(as_np(got), as_np(want), dtype)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    q, k, v = to_torch(flash_inputs(11, 1, 16, 16, 2, 1, 64), "float32",
+                       cuda_device)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(q[..., :32].contiguous(),
+                             k[..., :32].contiguous(),
+                             v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention_cuda(q, k.cpu(), v)
+    dq, dk, dv, sp, cur = to_torch(decode_inputs(11, 1, 64, 2, 1, 64),
+                                   "float32", cuda_device)
+    with pytest.raises(ValueError, match="dtypes"):
+        decode_attention_cuda(dq.double(), dk.double(), dv.double(), sp,
+                              cur)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention_cuda(dq[..., :32].contiguous(),
+                              dk[..., :32].contiguous(),
+                              dv[..., :32].contiguous(), sp, cur)

@@ -159,8 +159,9 @@ def _chip_smoke():
 def test_golden_digests_are_the_references(ref):
     """``chip_smoke.py`` holds the card's full-size runs to constants;
     they are the reference's own results (``gather``) on the same trace
-    and scenarios.  The trace it runs is the stored quickstart trace,
-    which is the reference's ``edge_trace(seed=0, duration_s=3600)``."""
+    head and scenarios.  The trace it cuts is the stored quickstart
+    trace, which is the reference's ``edge_trace(seed=0,
+    duration_s=3600)``."""
     from repro.cluster.presets import het16_cluster
     from repro.workloads import edge_trace as ref_edge_trace
     smoke = _chip_smoke()
@@ -182,7 +183,8 @@ def test_golden_digests_are_the_references(ref):
     for name, scn in ref_scn.items():
         assert port_scn[name].label == scn.label
         assert port_scn[name].max_slots == scn.max_slots
-        assert _digests(ref.simulate(scn, tr, mode="gather")) \
+        assert _digests(ref.simulate(scn, tr.head(smoke.SIM_EVENTS),
+                                     mode="gather")) \
             == smoke.GOLDEN[name], name
 
 
