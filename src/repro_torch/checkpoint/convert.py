@@ -1,14 +1,18 @@
 """Carry the JAX package's model parameters into the port.
 
-The reference keeps a dense model's layers stacked (every leaf under
-``layers`` has a leading layer axis) and saves checkpoints as flat
-``"/"``-joined keys (``repro.checkpoint``: ``layers/attn/wq/w``,
-``embed/emb``, ...).  The port keeps ``params["layers"]`` as a list of
-per-layer dicts.  :func:`params_from_reference` takes either form, as
-numpy arrays, unstacks the layer axis, and checks every key, shape and
-dtype against the port's own parameters for the config.  bf16 arrives
-from numpy as ``ml_dtypes.bfloat16`` (or as raw 2-byte ``V2`` after a
-trip through ``.npz``) and is carried bit for bit through ``uint16``.
+The reference keeps a dense or RWKV model's layers stacked (every leaf
+under ``layers`` has a leading layer axis), and a hybrid's as a list with
+one Mamba layer dict at each ``"mamba"`` position, ``None`` at each
+``"attn"`` position and the one ``shared_attn`` block beside it.  It saves
+checkpoints as flat ``"/"``-joined keys (``repro.checkpoint``:
+``layers/attn/wq/w``, ``layers/0/ssm/in_proj/w``, ``embed/emb``, ...; a
+list index is its number, and a ``None`` has no key).  The port keeps
+``params["layers"]`` as a list of per-layer dicts (``None`` at a hybrid's
+attention positions).  :func:`params_from_reference` takes either form, as
+numpy arrays, unstacks a stacked layer axis, and checks every key, shape
+and dtype against the port's own parameters for the config.  bf16 arrives
+from numpy as ``ml_dtypes.bfloat16`` (or as raw 2-byte ``V2`` after a trip
+through ``.npz``) and is carried bit for bit through ``uint16``.
 """
 from __future__ import annotations
 
@@ -20,14 +24,40 @@ from ..models.config import ModelConfig
 from ..models.transformer import _device
 
 
+def _children(tree):
+    if isinstance(tree, dict):
+        return tree.items()
+    if isinstance(tree, (list, tuple)):
+        return enumerate(tree)
+    return None
+
+
 def flatten(tree, prefix: str = "") -> dict:
-    """Nested dicts -> ``{"a/b/c": leaf}``."""
-    if not isinstance(tree, dict):
+    """Nested dicts and lists -> ``{"a/0/c": leaf}``; a ``None`` has no
+    key."""
+    if tree is None:
+        return {}
+    children = _children(tree)
+    if children is None:
         return {prefix: tree}
     out = {}
-    for k, v in tree.items():
+    for k, v in children:
         out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
     return out
+
+
+def _map(tree, fn, prefix: str = ""):
+    """``tree`` with each leaf replaced by ``fn(key, leaf)`` (keys as
+    :func:`flatten` makes them); ``None`` stays."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn, f"{prefix}/{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
 
 
 def _tensor(arr: np.ndarray, want: torch.Tensor, key: str) -> torch.Tensor:
@@ -43,43 +73,38 @@ def _tensor(arr: np.ndarray, want: torch.Tensor, key: str) -> torch.Tensor:
 
 
 def params_from_reference(tree, cfg: ModelConfig, device=None) -> dict:
-    """The port's params for ``cfg`` from the reference's: a nested dict
+    """The port's params for ``cfg`` from the reference's: a nested tree
     of arrays (``repro.models.init_params``'s layout) or its flat
     ``"/"``-joined keys.  Raises on a missing or extra key, or a shape or
     dtype that differs from the port's."""
     flat = {k: np.asarray(v) for k, v in flatten(tree).items()}
     want = init_params(cfg, device="meta")
     dev = _device(device)
-    n_layers = cfg.n_layers
-    out: dict = {}
     seen = set()
-    for key, leaf in flatten({k: v for k, v in want.items()
-                              if k != "layers"}).items():
+
+    def take(key, leaf, shape):
         arr = flat.get(key)
         if arr is None:
             raise KeyError(f"reference params lack {key}")
-        if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"{key}: shape {arr.shape}, want "
-                             f"{tuple(leaf.shape)}")
-        _set(out, key, _tensor(arr, leaf, key).to(dev))
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{key}: shape {arr.shape}, want {shape}")
         seen.add(key)
-    layers = [dict() for _ in range(n_layers)]
-    for sub, leaf in flatten(want["layers"][0] if n_layers else {}).items():
-        key = f"layers/{sub}"
-        arr = flat.get(key)
-        if arr is None:
-            raise KeyError(f"reference params lack {key}")
-        if tuple(arr.shape) != (n_layers, *leaf.shape):
-            raise ValueError(f"{key}: shape {arr.shape}, want "
-                             f"{(n_layers, *leaf.shape)}")
-        t = _tensor(arr, leaf, key)
-        for i in range(n_layers):
-            _set(layers[i], sub, t[i].clone().to(dev))
-        seen.add(key)
+        return _tensor(arr, leaf, key)
+
+    stacked = cfg.arch_type != "hybrid"
+    out = _map({k: v for k, v in want.items()
+                if not (stacked and k == "layers")},
+               lambda key, leaf: take(key, leaf, tuple(leaf.shape)).to(dev))
+    if stacked:
+        n = cfg.n_layers
+        layer = want["layers"][0] if n else {}
+        full = {sub: take(f"layers/{sub}", leaf, (n, *leaf.shape))
+                for sub, leaf in flatten(layer).items()}
+        out["layers"] = [_map(layer, lambda sub, _: full[sub][i].clone()
+                              .to(dev)) for i in range(n)]
     extra = sorted(set(flat) - seen)
     if extra:
         raise KeyError(f"reference params the port does not know: {extra}")
-    out["layers"] = layers
     return out
 
 
@@ -89,10 +114,3 @@ def load_reference_checkpoint(path, cfg: ModelConfig, device=None) -> dict:
     with np.load(path) as data:
         return params_from_reference({k: data[k] for k in data.files}, cfg,
                                      device)
-
-
-def _set(tree: dict, key: str, value) -> None:
-    *path, last = key.split("/")
-    for p in path:
-        tree = tree.setdefault(p, {})
-    tree[last] = value

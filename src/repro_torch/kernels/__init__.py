@@ -9,12 +9,14 @@ B2 decode_attention      repro/kernels/decode_attention.py    ``decode_attention
    (split-KV + combine)    ``_kernel``                         ``decode_attention_plain``
 B3 flash_attention       repro/kernels/flash_attention.py     ``flash_attention_cuda`` /
    (prefill)               ``_kernel``                         ``flash_attention_plain``
+B4 ssm_scan              repro/kernels/ssm_scan.py            ``ssm_scan_cuda`` /
+   (Mamba2 SSD, chunked)   ``_kernel``                         ``ssm_scan_plain``
+B5 wkv6                  repro/kernels/wkv6.py                ``wkv6_cuda`` /
+   (RWKV6 recurrence)      ``_kernel``                         ``wkv6_plain``
 =======================  ===================================  =========================
 
-B4 (the Mamba2 SSD scan) and B5 (the RWKV6 WKV recurrence) are still to
-port: :mod:`.ops` raises for them.  :mod:`.ops` routes the attention
-entry points by the tensor's device: the kernel on CUDA, the plain
-version on the CPU.  Kernels are built from ``csrc/`` at first use
-(:mod:`._build`); importing this package builds nothing.  Each wrapper
-counts its launches in a ``launches`` attribute.
+:mod:`.ops` routes each entry point by the tensor's device: the kernel on
+CUDA, the plain version on the CPU.  Kernels are built from ``csrc/`` at
+first use (:mod:`._build`); importing this package builds nothing.  Each
+wrapper counts its launches in a ``launches`` attribute.
 """

@@ -9,8 +9,11 @@ the repository root (listed in ``.gitignore``)::
 
 ``-fmad=false`` (and no fast math) keeps every float operation as
 written, which B1's bitwise contract relies on; those are the default
-flags.  A kernel with no bitwise contract (attention) passes its own,
-:data:`ATTENTION_FLAGS`, which let ``nvcc`` contract into FMA.  A library
+flags.  A kernel with no bitwise contract passes its own,
+:data:`ATTENTION_FLAGS`, which let ``nvcc`` contract into FMA: the
+attention kernels (B2, B3) and the scans (B4, B5), which are held to
+their plain versions within a tolerance, not bit for bit, and make no
+decision on the values they compute.  A library
 is built at first use in a process, and again whenever its source is
 newer; a failed build raises with the compiler's output.
 :func:`build_parallel` starts one ``nvcc`` per source at once.  Nothing

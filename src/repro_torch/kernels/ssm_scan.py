@@ -1,0 +1,143 @@
+"""The Mamba2 SSD scan (kernel B4) in hand-written CUDA, and its plain
+version.
+
+Port of ``repro.kernels.ssm_scan`` (the Pallas kernel ``_kernel``) and of
+its oracle ``repro.kernels.ref.ssm_scan``: per (batch, head)
+``h_t = exp(a dt_t) h_{t-1} + dt_t B_t x_t^T`` and ``y_t = C_t h_t``, with
+x ``[B, S, H, P]``, dt ``[B, S, H]`` f32, a ``[H]`` f32 (negative), B/C
+``[B, S, H, N]``; y in x's dtype and the final state ``[B, H, N, P]`` in
+f32.
+
+* :func:`ssm_scan_cuda` launches ``csrc/ssm_scan.cu`` (chunks of
+  :data:`CHUNK` steps in the SSD matrix form) on a CUDA tensor and raises
+  on anything else;
+* :func:`ssm_scan_plain` is the oracle in plain torch: the sequential
+  recurrence in f32, on any device;
+* :func:`ssm_decode_step` is the single-token update, plain torch: the
+  reference has no kernel for it (``repro/kernels/ops.py``: "no kernel
+  warranted").
+
+``repro_torch.kernels.ops.ssm_scan`` takes the kernel for CUDA tensors and
+the plain version for CPU tensors, and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+#: Steps a chunk of the kernel (``T`` in the .cu).
+CHUNK = 64
+#: (N, P) the kernel is built for: zamba2's (64, 64), and the reference's
+#: test shapes (32, 64) and (16, 32) (the last is also reduced zamba2's).
+STATE_SHAPES = ((64, 64), (32, 64), (16, 32))
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BUILD = ("ssm_scan", _build.ATTENTION_FLAGS)
+
+
+def ssm_scan_plain(x, dt, a, b, c, *, h0=None):
+    """The reference oracle in torch: the recurrence a step at a time,
+    in f32.  Returns (y in x's dtype, h_final f32)."""
+    bsz, s, hh, p = x.shape
+    n = b.shape[-1]
+    h = torch.zeros(bsz, hh, n, p, dtype=torch.float32, device=x.device) \
+        if h0 is None else h0
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, b, c))
+    ys = []
+    for t in range(s):
+        y, h = ssm_decode_step(xf[:, t], dtf[:, t], a, bf[:, t], cf[:, t], h)
+        ys.append(y)
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def ssm_decode_step(x, dt, a, b, c, h):
+    """Single-token SSM update (``repro.kernels.ref.ssm_decode_step``).
+    x [B,H,P], dt [B,H] f32, b/c [B,H,N], h [B,H,N,P] -> (y [B,H,P] in x's
+    dtype, h' f32)."""
+    decay = torch.exp(a[None] * dt)[..., None, None]
+    h = decay * h.float() + (
+        b[..., None] * (dt[..., None] * x)[..., None, :]).float()
+    y = torch.einsum("bhn,bhnp->bhp", c.float(), h)
+    return y.to(x.dtype), h
+
+
+def _library():
+    lib = _build.load(*BUILD)
+    fn = lib.ssm_scan_launch
+    if fn.argtypes is None:
+        if lib.ssm_scan_chunk() != CHUNK:
+            raise RuntimeError("CHUNK differs between the wrapper and "
+                               "csrc/ssm_scan.cu")
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_inputs(x, dt, a, b, c, h0) -> None:
+    """Raise unless the kernel takes these inputs."""
+    if x.ndim != 4 or b.ndim != 4:
+        raise ValueError(f"want x [B,S,H,P] and b/c [B,S,H,N], got "
+                         f"{tuple(x.shape)}, {tuple(b.shape)}")
+    bsz, s, hh, p = x.shape
+    n = b.shape[-1]
+    if tuple(b.shape) != (bsz, s, hh, n) or c.shape != b.shape:
+        raise ValueError(f"b/c {tuple(b.shape)}, {tuple(c.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if tuple(dt.shape) != (bsz, s, hh) or tuple(a.shape) != (hh,):
+        raise ValueError(f"dt {tuple(dt.shape)}, a {tuple(a.shape)}: want "
+                         f"{(bsz, s, hh)} and {(hh,)}")
+    if min(bsz, s, hh) < 1:
+        raise ValueError(f"empty scan: B={bsz}, S={s}, H={hh}")
+    if (n, p) not in STATE_SHAPES:
+        raise ValueError(f"state (N, P) = {(n, p)}: the kernel takes "
+                         f"{STATE_SHAPES}")
+    if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise ValueError(f"dtypes {x.dtype}, {b.dtype}, {c.dtype}: want one "
+                         "of float32, bfloat16 for x, b and c")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"dt {dt.dtype} and a {a.dtype} must be float32")
+    tensors = [("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)]
+    if h0 is not None:
+        if tuple(h0.shape) != (bsz, hh, n, p) or h0.dtype != torch.float32:
+            raise ValueError(f"h0: want float32 {(bsz, hh, n, p)}, got "
+                             f"{h0.dtype} {tuple(h0.shape)}")
+        tensors.append(("h0", h0))
+    if len({t.device for _, t in tensors}) != 1:
+        raise ValueError("x, dt, a, b, c and h0 must be on one device")
+    for name, t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ssm_scan_cuda(x, dt, a, b, c, *, h0=None):
+    """Launch ``csrc/ssm_scan.cu`` on PyTorch's current stream.
+
+    Same contract as :func:`ssm_scan_plain`.  Raises on tensors that are
+    not on a CUDA device or not contiguous, on x/b/c of other dtypes than
+    float32/bfloat16 (one for all three), dt/a/h0 other than float32, an
+    (N, P) outside :data:`STATE_SHAPES`, and when the build or the launch
+    fails.  Counts its launches in ``ssm_scan_cuda.launches``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan_cuda needs CUDA tensors, got {x.device}")
+    check_inputs(x, dt, a, b, c, h0)
+    bsz, s, hh, p = x.shape
+    n = b.shape[-1]
+    launch = _library()
+    y = torch.empty_like(x)
+    h_out = torch.empty(bsz, hh, n, p, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = [None if t is None else ctypes.c_void_p(t.data_ptr())
+            for t in (x, dt, a, b, c, h0, y, h_out)]
+    rc = launch(*ptrs, bsz, s, hh, n, p, _DTYPES[x.dtype],
+                ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {rc} "
+                           f"at x {tuple(x.shape)}, N={n}, {x.dtype}")
+    ssm_scan_cuda.launches += 1
+    return y, h_out
+
+
+ssm_scan_cuda.launches = 0

@@ -5,10 +5,13 @@ Reduced-config registry, real cold starts (weights on the device plus a
 warm-up).  Replays a workload of model requests through the Batcher and
 reports the paper's metrics (cold-start %, drop %, per-class) measured on
 real containers.  Runs on the CUDA device unless ``--device cpu``.  The
-default registry mixes model families; only the dense ones are ported so
-far, so ``--n-archs 1`` (reduced starcoder2-3b) is what runs today::
+default registry (``--n-archs 4``) mixes the dense, SSM and hybrid
+families: reduced starcoder2-3b, rwkv6-7b, zamba2-1.2b and glm4-9b::
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n-archs 1
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+``--n-archs 5`` adds qwen2.5-32b (dense); ``--n-archs 6`` adds
+granite-moe-1b-a400m, whose MoE family is not ported yet and raises.
 """
 from __future__ import annotations
 

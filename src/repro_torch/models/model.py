@@ -1,7 +1,7 @@
 """Unified model facade, port of ``repro.models.model``: one API across
-the model families.  Only the dense decoder-only family is ported so far;
-the others, encoder-decoder (whisper) included, raise at init naming
-their ROADMAP item (``transformer.check_supported``)."""
+the model families.  The dense, hybrid (zamba2) and SSM (rwkv6) decoder
+stacks are ported; MoE, VLM and encoder-decoder (whisper) raise at init
+naming their ROADMAP item (``transformer.check_supported``)."""
 from __future__ import annotations
 
 import torch

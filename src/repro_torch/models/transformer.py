@@ -1,15 +1,20 @@
-"""Decoder-only transformer, dense path; port of
-``repro.models.transformer``.
+"""Decoder-only stacks of the dense, hybrid (zamba2) and SSM (rwkv6)
+families; port of ``repro.models.transformer``.
 
 * ``init_params(cfg, seed, device)``
 * ``forward_train(cfg, params, batch)``          -> (logits, aux)
 * ``prefill(cfg, params, batch, cache_len)``     -> (logits, caches)
 * ``decode(cfg, params, batch, caches)``         -> (logits, caches)
 
-The reference scans stacked layer params; here ``params["layers"]`` is a
-list of per-layer dicts and the stack is a Python loop over it, and the
-caches are a list of per-layer ``KVCache``s.  ``forward_train`` is the
-no-cache forward, without rematerialisation.  Other families raise
+The reference scans stacked layer params for the dense and RWKV stacks;
+here ``params["layers"]`` is a list of per-layer dicts and every stack is
+a Python loop over it, and the caches are a list with one entry a layer
+(``KVCache``, ``SSMCache`` or ``RWKVCache``).  The hybrid keeps the
+reference's layout: ``params["layers"]`` holds a Mamba layer at each
+``"mamba"`` position and ``None`` at each ``"attn"`` position, where the
+one ``params["shared_attn"]`` block runs, with a ``KVCache`` of its own at
+each position.  ``forward_train`` is the no-cache forward, without
+rematerialisation.  The MoE, VLM and audio families raise
 ``NotImplementedError`` naming their ROADMAP item until their slice lands
 (at ``init_params``/``init_caches``: no params exist for them to run).
 
@@ -23,17 +28,18 @@ from typing import Any, NamedTuple
 import torch
 
 from .._device import resolve_device
-from .attention import (KVCache, attention_decode, attention_prefill,
-                        attn_init, init_cache)
+from .attention import (attention_decode, attention_prefill, attn_init,
+                        init_cache)
 from .config import ModelConfig
 from .layers import _dtype, dense, dense_init, embed, embedding_init, mlp, mlp_init, \
     norm, norm_init
+from .rwkv import (RWKVCache, channel_mix, init_rwkv_cache, rwkv_init,
+                   time_mix)
+from .ssm import init_ssm_cache, ssm_decode, ssm_init, ssm_prefill
 
-#: Families other than dense, and the ROADMAP item that brings each.
+#: Families not ported yet, and the ROADMAP item that brings each.
 NOT_PORTED = {
     "moe": "moe.py (ROADMAP A15)",
-    "hybrid": "ssm.py and kernel B4 (ROADMAP A15, B4)",
-    "ssm": "rwkv.py and kernel B5 (ROADMAP A15, B5)",
     "vlm": "the VLM frontends (ROADMAP A15)",
     "audio": "whisper (ROADMAP A15)",
 }
@@ -50,11 +56,10 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models come with "
             f"{NOT_PORTED['audio']}")
-    if cfg.arch_type != "dense" or cfg.is_moe:
-        kind = "moe" if cfg.is_moe else cfg.arch_type
+    kind = "moe" if cfg.is_moe else cfg.arch_type
+    if kind in NOT_PORTED:
         raise NotImplementedError(
-            f"{cfg.name}: the {kind} family comes with "
-            f"{NOT_PORTED.get(kind, 'a later slice')}")
+            f"{cfg.name}: the {kind} family comes with {NOT_PORTED[kind]}")
 
 
 def _device(device):
@@ -76,6 +81,20 @@ def _attn_layer_init(gen, cfg: ModelConfig, device) -> dict:
                             device=device)}
 
 
+def _mamba_layer_init(gen, cfg: ModelConfig, device) -> dict:
+    return {"ln1": norm_init(cfg.d_model, cfg.norm_type, "float32",
+                             device=device),
+            "ssm": ssm_init(gen, cfg, device=device)}
+
+
+def _rwkv_layer_init(gen, cfg: ModelConfig, device) -> dict:
+    return {"ln1": norm_init(cfg.d_model, cfg.norm_type, "float32",
+                             device=device),
+            "ln2": norm_init(cfg.d_model, cfg.norm_type, "float32",
+                             device=device),
+            "rwkv": rwkv_init(gen, cfg, device=device)}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random weights in ``cfg.dtype`` (norms in f32) from a
     ``torch.Generator`` seeded with ``seed``, on ``device`` (CUDA unless
@@ -95,8 +114,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        cfg.dtype, device=dev)
-    params["layers"] = [_attn_layer_init(gen, cfg, dev)
-                        for _ in range(cfg.n_layers)]
+    kinds = cfg.layer_kinds()
+    if cfg.arch_type == "hybrid":
+        # attention positions run the SHARED block; their slot is empty
+        params["layers"] = [_mamba_layer_init(gen, cfg, dev)
+                            if kind == "mamba" else None for kind in kinds]
+        params["shared_attn"] = _attn_layer_init(gen, cfg, dev)
+    else:
+        init_one = _rwkv_layer_init if cfg.arch_type == "ssm" \
+            else _attn_layer_init
+        params["layers"] = [init_one(gen, cfg, dev) for _ in kinds]
     return params
 
 
@@ -120,6 +147,28 @@ def _attn_block(cfg, lp, x, positions, *, mode, cache=None,
     x = x + h
     x = x + mlp(lp["mlp"], norm(lp["ln2"], x, cfg.norm_eps), cfg.act)
     return x, new_cache
+
+
+def _mamba_block(cfg, lp, x, *, mode, cache=None):
+    z = norm(lp["ln1"], x, cfg.norm_eps)
+    if mode == "decode":
+        h, new_cache = ssm_decode(cfg, lp["ssm"], z, cache)
+    else:
+        h, new_cache = ssm_prefill(cfg, lp["ssm"], z,
+                                   make_cache=(mode == "prefill"))
+    return x + h, new_cache
+
+
+def _rwkv_block(cfg, lp, x, *, cache: RWKVCache | None = None):
+    ltm, lcm, st = cache if cache is not None else (None, None, None)
+    h, new_ltm, new_state = time_mix(cfg, lp["rwkv"],
+                                     norm(lp["ln1"], x, cfg.norm_eps),
+                                     ltm, st)
+    x = x + h
+    h, new_lcm = channel_mix(cfg, lp["rwkv"],
+                             norm(lp["ln2"], x, cfg.norm_eps), lcm)
+    x = x + h
+    return x, RWKVCache(new_ltm, new_lcm, new_state)
 
 
 # ---------------------------------------------------------------------------
@@ -148,14 +197,23 @@ def _zero_aux(x) -> Aux:
 
 def _run_stack(cfg: ModelConfig, params, x, positions, *, mode,
                caches=None, cache_len=0, window=None, seq_positions=None):
-    """Run the layer stack, one layer after another.  Returns
-    (x, caches or None)."""
+    """Run the layer stack, one layer after another (the hybrid's
+    attention positions through the shared block).  Returns (x, caches or
+    None)."""
     new_caches = []
-    for i, lp in enumerate(params["layers"]):
-        x, c = _attn_block(cfg, lp, x, positions, mode=mode,
-                           cache=caches[i] if caches is not None else None,
-                           cache_len=cache_len, window=window,
-                           seq_positions=seq_positions)
+    for i, kind in enumerate(cfg.layer_kinds()):
+        c = caches[i] if caches is not None else None
+        if kind == "mamba":
+            x, c = _mamba_block(cfg, params["layers"][i], x, mode=mode,
+                                cache=c)
+        elif kind == "rwkv":
+            x, c = _rwkv_block(cfg, params["layers"][i], x, cache=c)
+        else:
+            lp = params["shared_attn"] if cfg.arch_type == "hybrid" \
+                else params["layers"][i]
+            x, c = _attn_block(cfg, lp, x, positions, mode=mode, cache=c,
+                               cache_len=cache_len, window=window,
+                               seq_positions=seq_positions)
         new_caches.append(c)
     return x, (new_caches if mode != "train" else None)
 
@@ -200,11 +258,15 @@ def decode(cfg: ModelConfig, params, batch, caches, *,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, window: int | None = None,
-                device=None) -> list[KVCache]:
-    """Blank per-layer caches.  ``window`` caps each to a ring of that
-    many slots."""
+                device=None) -> list:
+    """Blank per-layer caches: a ``KVCache`` at each attention position
+    (``window`` caps it to a ring of that many slots), an ``SSMCache`` at
+    each Mamba layer and an ``RWKVCache`` at each RWKV layer."""
     check_supported(cfg)
     eff_len = min(max_len, window) if window else max_len
     dev = _device(device)
-    return [init_cache(cfg, batch, eff_len, dtype, device=dev)
-            for _ in range(cfg.n_layers)]
+    make = {"attn": lambda: init_cache(cfg, batch, eff_len, dtype,
+                                       device=dev),
+            "mamba": lambda: init_ssm_cache(cfg, batch, dtype, device=dev),
+            "rwkv": lambda: init_rwkv_cache(cfg, batch, dtype, device=dev)}
+    return [make[kind]() for kind in cfg.layer_kinds()]

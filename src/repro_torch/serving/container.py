@@ -18,6 +18,8 @@ import torch
 from .._device import resolve_device
 from ..models import decode_step, init_params, prefill
 from ..models.attention import cache_slots
+from ..models.rwkv import _heads as rwkv_heads
+from ..models.ssm import _dims as ssm_dims
 from ..models.config import ModelConfig
 
 
@@ -43,13 +45,26 @@ def pytree_mb(tree) -> float:
 
 def cache_mb(cfg: ModelConfig, batch: int, max_len: int) -> float:
     """MB of an f32 cache arena for ``batch`` sequences of ``max_len``,
-    from its shapes: per layer k and v ``[B, S_c, KV, D]`` f32 and
-    ``slot_pos`` i32 ``[B, S_c]`` (the reference's
-    ``pytree_mb(init_caches(..., dtype=f32))``)."""
-    s = cache_slots(cfg, max_len)
-    per_layer = (2 * batch * s * cfg.n_kv_heads * cfg.resolved_head_dim * 4
-                 + batch * s * 4)
-    return cfg.n_layers * per_layer / 1e6
+    from its shapes (the reference's
+    ``pytree_mb(init_caches(..., dtype=f32))``), layer kind by layer kind:
+    at each attention position k and v ``[B, S_c, KV, D]`` f32 and
+    ``slot_pos`` i32 ``[B, S_c]``; at each Mamba layer the conv history
+    ``[B, W-1, conv_dim]`` and the state ``[B, H, N, P]``; at each RWKV
+    layer the two shifts ``[B, D]`` and the state ``[B, H, 64, 64]``; all
+    f32."""
+    per_kind = {}
+    if cfg.n_heads:
+        s = cache_slots(cfg, max_len)
+        per_kind["attn"] = (2 * batch * s * cfg.n_kv_heads
+                            * cfg.resolved_head_dim + batch * s)
+    if cfg.arch_type == "hybrid":
+        _, nh, conv_dim = ssm_dims(cfg)
+        per_kind["mamba"] = batch * ((cfg.ssm_conv_width - 1) * conv_dim
+                                     + nh * cfg.ssm_state * cfg.ssm_head_dim)
+    if cfg.arch_type == "ssm":
+        h, hd = rwkv_heads(cfg)
+        per_kind["rwkv"] = batch * (2 * cfg.d_model + h * hd * hd)
+    return sum(per_kind[k] for k in cfg.layer_kinds()) * 4 / 1e6
 
 
 class ModelContainer:

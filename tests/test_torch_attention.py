@@ -181,13 +181,6 @@ def test_cpu_tensors_take_the_plain_version_only():
         ops.flash_attention(*(t.to("meta") for t in fa))
 
 
-def test_scan_kernels_raise_until_ported():
-    with pytest.raises(NotImplementedError, match="B4"):
-        ops.ssm_scan()
-    with pytest.raises(NotImplementedError, match="B5"):
-        ops.wkv6()
-
-
 def test_kernel_input_checks():
     """What the wrappers refuse, checked before any launch."""
     q, k, v = to_torch(flash_inputs(8, 1, 16, 16, 2, 1, 64), "float32")

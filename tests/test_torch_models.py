@@ -1,13 +1,18 @@
-"""The port's dense model stack against the JAX reference, on the CPU.
+"""The port's model stacks against the JAX reference, on the CPU.
 
 Reduced starcoder2-3b (LayerNorm, tanh-GELU MLP, QKV bias, a 64-token
-sliding window) and glm4-9b (RMSNorm, gated SiLU) in f32, with the
-reference's weights carried across by ``repro_torch.checkpoint``.  Inputs
-come from a numpy seed.  Tolerance: 1e-5 absolute and relative in f32 —
-both sides compute in f32 and differ only in summation order and in the
-last ulp of ``pow``/``exp``/``tanh``; a tanh-vs-erf GELU mix-up (~1e-3)
-or a lost window lies far outside it.  The reference is imported inside
-fixtures, so the file also collects where JAX is absent.
+sliding window) and glm4-9b (RMSNorm, gated SiLU), reduced zamba2-1.2b
+(Mamba2 layers around one shared attention block; 2 layers, and 4 so
+that the shared block runs at two positions with a cache each) and
+reduced rwkv6-7b (attention-free), in f32, with the reference's weights
+carried across by ``repro_torch.checkpoint``.  Inputs come from a numpy
+seed.  Tolerance: 1e-5 absolute and relative in f32 — both sides compute
+in f32 and differ only in summation order and in the last ulp of
+``pow``/``exp``/``tanh``; the recurrences run the sequential oracle on
+both sides (the port's plain scans); a tanh-vs-erf GELU mix-up (~1e-3), a
+lost window or a state that is not carried lies far outside it.  The
+reference is imported inside fixtures, so the file also collects where
+JAX is absent.
 """
 import dataclasses
 
@@ -28,6 +33,10 @@ from repro_torch.models.transformer import check_supported
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("starcoder2-3b", "glm4-9b")
+#: name: (arch, layers) of the recurrent families' reduced variants.
+RECURRENT = {"zamba2-1.2b": ("zamba2-1.2b", 2),
+             "zamba2-4-layers": ("zamba2-1.2b", 4),
+             "rwkv6-7b": ("rwkv6-7b", 2)}
 
 
 @pytest.fixture(scope="module")
@@ -52,6 +61,21 @@ def pair(ref):
         tp = params_from_reference(
             ref["jax"].tree_util.tree_map(np.asarray, rp), cfg, "cpu")
         out[arch] = (cfg, rp, tp)
+    return out
+
+
+@pytest.fixture(scope="module")
+def rec(ref):
+    """Per ``RECURRENT`` name: (reduced cfg, reference params, the port's
+    params)."""
+    out = {}
+    for name, (arch, n_layers) in RECURRENT.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  n_layers=n_layers)
+        rp = ref["models"].init_params(cfg, ref["jax"].random.PRNGKey(4))
+        tp = params_from_reference(
+            ref["jax"].tree_util.tree_map(np.asarray, rp), cfg, "cpu")
+        out[name] = (cfg, rp, tp)
     return out
 
 
@@ -221,34 +245,40 @@ def test_checkpoint_file_and_bf16_bits(ref, tmp_path):
         params_from_reference(flat, cfg, "cpu")
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_config(a).arch_type == "dense"])
+@pytest.mark.parametrize("arch", [
+    a for a in ARCH_IDS
+    if get_config(a).arch_type in ("dense", "hybrid", "ssm")])
 def test_full_width_param_shapes_match_reference(arch, ref):
-    """At full width, from shapes only (``jax.eval_shape`` / ``meta``)."""
+    """At full width, from shapes only (``jax.eval_shape`` / ``meta``):
+    the dense and RWKV stacks with the reference's leading layer axis,
+    the hybrid's list (``None`` at the shared block's positions) as it
+    is."""
     cfg = get_config(arch)
     jax = ref["jax"]
     shapes = jax.eval_shape(lambda: ref["models"].init_params(
         cfg, jax.random.PRNGKey(0)))
     want = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
-        key = "/".join(str(p.key) for p in path)
+        key = "/".join(str(p.key if hasattr(p, "key") else p.idx)
+                       for p in path)
         want[key] = (tuple(leaf.shape), str(leaf.dtype))
     from repro_torch.checkpoint.convert import flatten
     meta = init_params(cfg, device="meta")
+    stacked = cfg.arch_type != "hybrid"
     got = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
            for k, v in flatten({k: v for k, v in meta.items()
-                                if k != "layers"}).items()}
-    for k, v in flatten(meta["layers"][0]).items():
-        got[f"layers/{k}"] = ((cfg.n_layers, *v.shape),
-                              str(v.dtype).removeprefix("torch."))
+                                if not (stacked and k == "layers")}).items()}
+    if stacked:
+        for k, v in flatten(meta["layers"][0]).items():
+            got[f"layers/{k}"] = ((cfg.n_layers, *v.shape),
+                                  str(v.dtype).removeprefix("torch."))
     assert got == want
-    assert all(t.device.type == "meta" for t in
-               flatten(dict(meta, layers=meta["layers"][0])).values())
+    assert all(t.device.type == "meta" for t in flatten(meta).values())
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("granite-moe-1b-a400m", "moe.py"), ("zamba2-1.2b", "B4"),
-    ("rwkv6-7b", "B5"), ("qwen2-vl-7b", "VLM"), ("whisper-medium", "whisper")])
+    ("granite-moe-1b-a400m", "moe.py"), ("qwen2-vl-7b", "VLM"),
+    ("whisper-medium", "whisper")])
 def test_other_families_raise_naming_their_item(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         check_supported(get_config(arch).reduced())
@@ -260,3 +290,179 @@ def test_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(get_config("glm4-9b").reduced())
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: zamba2 (hybrid) and rwkv6 (ssm)
+# ---------------------------------------------------------------------------
+
+def rec_layer(rp, tp, i):
+    """Layer ``i``'s params on both sides (the reference's RWKV stack is
+    stacked, its hybrid a list)."""
+    import jax
+    rl = rp["layers"][i] if isinstance(rp["layers"], list) else \
+        jax.tree_util.tree_map(lambda a: a[i], rp["layers"])
+    return rl, tp["layers"][i]
+
+
+@pytest.mark.parametrize("s", [2, 9])
+def test_mamba_block_prefill_then_decode(s, rec, ref):
+    """``ssm_prefill`` with its cache (S=2 is shorter than the conv's
+    history, which is then left-padded), then two ``ssm_decode`` steps."""
+    from repro.models import ssm as R_ssm
+    from repro_torch.models import ssm as T_ssm
+    cfg, rp, tp = rec["zamba2-1.2b"]
+    rl, tl = rec_layer(rp, tp, 0)
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, s, cfg.d_model), np.float32)
+    jnp = ref["jnp"]
+    ry, rc = R_ssm.ssm_prefill(cfg, rl["ssm"], jnp.asarray(x),
+                               make_cache=True)
+    ty, tc = T_ssm.ssm_prefill(cfg, tl["ssm"], tt(x), make_cache=True)
+    close(ty, ry)
+    assert tc.conv.shape == (2, cfg.ssm_conv_width - 1,
+                             T_ssm._dims(cfg)[2])
+    close(tc.conv, rc.conv)
+    close(tc.h, rc.h)
+    for _ in range(2):
+        x1 = rng.standard_normal((2, 1, cfg.d_model), np.float32)
+        ry, rc = R_ssm.ssm_decode(cfg, rl["ssm"], jnp.asarray(x1), rc)
+        ty, tc = T_ssm.ssm_decode(cfg, tl["ssm"], tt(x1), tc)
+        close(ty, ry)
+        close(tc.conv, rc.conv)
+        close(tc.h, rc.h)
+
+
+def test_softplus_is_logaddexp(ref):
+    from repro_torch.models.ssm import softplus
+    x = np.linspace(-30, 30, 121, dtype=np.float32)
+    close(softplus(tt(x)), ref["jax"].nn.softplus(ref["jnp"].asarray(x)))
+
+
+def test_rwkv_time_and_channel_mix(rec, ref):
+    """A 7-token pass from no state, then one token from the carried
+    shifts and WKV state."""
+    from repro.models import rwkv as R_rwkv
+    from repro_torch.models import rwkv as T_rwkv
+    cfg, rp, tp = rec["rwkv6-7b"]
+    rl, tl = rec_layer(rp, tp, 1)
+    rng = np.random.default_rng(11)
+    jnp = ref["jnp"]
+    x = rng.standard_normal((2, 7, cfg.d_model), np.float32)
+    ry, rlast, rst = R_rwkv.time_mix(cfg, rl["rwkv"], jnp.asarray(x), None,
+                                     None)
+    ty, tlast, tst = T_rwkv.time_mix(cfg, tl["rwkv"], tt(x), None, None)
+    for got, want in ((ty, ry), (tlast, rlast), (tst, rst)):
+        close(got, want)
+    x1 = rng.standard_normal((2, 1, cfg.d_model), np.float32)
+    ry, _, rst = R_rwkv.time_mix(cfg, rl["rwkv"], jnp.asarray(x1), rlast,
+                                 rst)
+    ty, _, tst = T_rwkv.time_mix(cfg, tl["rwkv"], tt(x1), tlast, tst)
+    close(ty, ry)
+    close(tst, rst)
+    ry, rlast = R_rwkv.channel_mix(cfg, rl["rwkv"], jnp.asarray(x), None)
+    ty, tlast = T_rwkv.channel_mix(cfg, tl["rwkv"], tt(x), None)
+    close(ty, ry)
+    ry, _ = R_rwkv.channel_mix(cfg, rl["rwkv"], jnp.asarray(x1), rlast)
+    ty, _ = T_rwkv.channel_mix(cfg, tl["rwkv"], tt(x1), tlast)
+    close(ty, ry)
+
+
+def close_caches(cfg, tcs, rcs):
+    """The port's per-layer caches against the reference's: a list by
+    layer for the hybrid, one stacked ``RWKVCache`` for rwkv."""
+    assert len(tcs) == cfg.n_layers
+    for i, (kind, c) in enumerate(zip(cfg.layer_kinds(), tcs)):
+        want = rcs[i] if cfg.arch_type == "hybrid" else \
+            type(rcs)(*(a[i] for a in rcs))
+        assert type(c).__name__ == type(want).__name__, (i, kind)
+        for name, got in c._asdict().items():
+            if got.dtype == torch.int32:
+                assert np.array_equal(got.numpy(),
+                                      np.asarray(getattr(want, name)))
+            else:
+                # a recurrent state is a sum over the sequence of terms of
+                # its own size, so its rounding error scales with its
+                # largest entry, not with each entry
+                want_a = np.asarray(getattr(want, name))
+                close(got, want_a, rtol=1e-5,
+                      atol=1e-5 * max(1.0, float(np.abs(want_a).max())))
+
+
+@pytest.mark.parametrize("name,s", [("zamba2-1.2b", 20), ("zamba2-1.2b", 2),
+                                    ("zamba2-4-layers", 20),
+                                    ("rwkv6-7b", 20)])
+def test_recurrent_prefill_then_three_decode_steps(name, s, rec, ref):
+    cfg, rp, tp = rec[name]
+    models = ref["models"]
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)
+    jb, tb = batch(ref, toks)
+    rl, rcs = models.prefill(cfg, rp, jb, cache_len=64)
+    tl, tcs = prefill(cfg, tp, tb, cache_len=64)
+    assert tl.dtype == torch.float32 and tl.shape == (2, 1, cfg.vocab_size)
+    close(tl, rl)
+    close_caches(cfg, tcs, rcs)
+    for step in range(3):
+        nxt = np.asarray(rl[:, -1].argmax(-1)).astype(np.int32)[:, None]
+        jb, tb = batch(ref, nxt, pos0=s + step)
+        rl, rcs = models.decode_step(cfg, rp, jb, rcs)
+        tl, tcs = decode_step(cfg, tp, tb, tcs)
+        close(tl, rl)
+    close_caches(cfg, tcs, rcs)
+    if cfg.arch_type == "hybrid":    # one cache a position of the block
+        attn = [c for c in tcs if hasattr(c, "slot_pos")]
+        assert len(attn) == cfg.layer_kinds().count("attn")
+        assert len({id(c.k) for c in attn}) == len(attn)
+
+
+@pytest.mark.parametrize("name", sorted(RECURRENT))
+def test_recurrent_forward_train(name, rec, ref):
+    cfg, rp, tp = rec[name]
+    toks = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (2, 30)).astype(np.int32)
+    jb, tb = batch(ref, toks)
+    want, _ = ref["models"].forward_train(cfg, rp, jb, remat=False)
+    got, _ = forward_train(cfg, tp, tb)
+    assert got.shape == (2, 30, cfg.vocab_size)
+    close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
+def test_checkpoint_list_and_stacked_layouts(arch, ref, tmp_path):
+    """A reference checkpoint ``.npz`` of the hybrid's list layout
+    (``layers/<i>/...``, no key at the shared block's positions) and of
+    the RWKV stack (a leading layer axis) converts to the nested tree's
+    params, bf16 bit for bit; a missing or extra key raises."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    rp = ref["models"].init_params(cfg, ref["jax"].random.PRNGKey(8))
+    path = ref["ckpt"].save_checkpoint(str(tmp_path), 1, rp)
+    got = load_reference_checkpoint(path, cfg, "cpu")
+    ref_np = ref["jax"].tree_util.tree_map(np.asarray, rp)
+    nested = params_from_reference(ref_np, cfg, "cpu")
+    from repro_torch.checkpoint.convert import flatten
+    assert flatten(got).keys() == flatten(nested).keys()
+    for k, v in flatten(got).items():
+        assert torch.equal(v, flatten(nested)[k]), k
+    if cfg.arch_type == "hybrid":
+        assert [lp is None for lp in got["layers"]] == \
+            [k == "attn" for k in cfg.layer_kinds()]
+        w, want = got["layers"][0]["ssm"]["in_proj"]["w"], \
+            ref_np["layers"][0]["ssm"]["in_proj"]["w"]
+        missing = "layers/0/ssm/conv_w"
+        extra = "layers/1/ssm/conv_w"
+    else:
+        w, want = got["layers"][1]["rwkv"]["wk"]["w"], \
+            ref_np["layers"]["rwkv"]["wk"]["w"][1]
+        missing = "layers/rwkv/u"
+        extra = "layers/0/rwkv/u"
+    assert w.dtype == torch.bfloat16
+    assert np.array_equal(w.view(torch.int16).numpy().view(np.uint16),
+                          want.view(np.uint16))
+    flat = {k: v for k, v in np.load(path).items()}
+    flat[extra] = flat[missing]
+    with pytest.raises(KeyError, match="does not know"):
+        params_from_reference(flat, cfg, "cpu")
+    del flat[missing]
+    with pytest.raises(KeyError, match=missing):
+        params_from_reference(flat, cfg, "cpu")

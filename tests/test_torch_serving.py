@@ -4,9 +4,9 @@
   outcomes, victims, free memory, clock and ``ClassMetrics`` (exactly:
   the pool is f32-mirrored numpy on both sides).
 * Container sizes: equal to the reference's for the reduced configs, and
-  at full width for starcoder2-3b and glm4-9b from shapes alone
-  (``jax.eval_shape`` / ``device="meta"``), so the server's class and
-  pool decisions at full width are the reference's.
+  at full width for starcoder2-3b, glm4-9b, zamba2-1.2b and rwkv6-7b from
+  shapes alone (``jax.eval_shape`` / ``device="meta"``), so the server's
+  class and pool decisions at full width are the reference's.
 * Servers: one request stream through ``repro.serving`` and the port
   gives the same statuses and metrics; a port container holding the
   reference container's weights gives its prefill and decode logits
@@ -29,6 +29,8 @@ from repro_torch.core.pool_ref import WarmPool
 from repro_torch.core.types import ClassMetrics, Policy, PoolConfig
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+from repro_torch.kernels.wkv6 import wkv6_cuda
 from repro_torch.launch import serve as T_serve
 from repro_torch.models import init_params
 from repro_torch.serving import (Batcher, KissServer, ModelContainer,
@@ -37,6 +39,10 @@ from repro_torch.serving import (Batcher, KissServer, ModelContainer,
 
 CKW = dict(max_batch=2, max_len=64)
 ARCHS = ("starcoder2-3b", "granite-34b", "glm4-9b", "qwen2.5-32b")
+#: The models that carry the serving path of each ported family.
+SIZED = ("starcoder2-3b", "glm4-9b", "zamba2-1.2b", "rwkv6-7b")
+#: chip_smoke.py's KissServer budget (``SERVE_BUDGET`` there).
+SMOKE_BUDGET = dict(total_mb=96_000, small_frac=0.25, threshold_mb=20_000)
 
 
 @pytest.fixture(scope="module")
@@ -57,9 +63,9 @@ def registry():
     return {a: get_config(a).reduced() for a in ARCHS}
 
 
-def ref_registry(ref):
+def ref_registry(ref, archs=ARCHS):
     from repro.configs import get_config as ref_get_config
-    return {a: ref_get_config(a).reduced() for a in ARCHS}
+    return {a: ref_get_config(a).reduced() for a in archs}
 
 
 # ---------------------------------------------------------------------------
@@ -121,11 +127,10 @@ def test_resize_policy_raises_naming_a11():
 @pytest.fixture(scope="module")
 def ref_containers(ref):
     return {a: ref["serving"].ModelContainer(cfg, **CKW)
-            for a, cfg in ref_registry(ref).items()
-            if a in ("starcoder2-3b", "glm4-9b")}
+            for a, cfg in ref_registry(ref, SIZED).items()}
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "glm4-9b"])
+@pytest.mark.parametrize("arch", SIZED)
 def test_reduced_container_size_matches_reference(arch, ref_containers):
     c = ModelContainer(get_config(arch).reduced(), device="cpu", **CKW)
     assert c.size_mb == pytest.approx(ref_containers[arch].size_mb,
@@ -133,7 +138,7 @@ def test_reduced_container_size_matches_reference(arch, ref_containers):
     assert c.cold_start_s > 0
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "glm4-9b"])
+@pytest.mark.parametrize("arch", SIZED)
 def test_full_width_container_size_matches_reference(arch, ref):
     """The container of ``chip_smoke.py`` (max_batch 2, max_len 4096)."""
     jax, jnp = ref["jax"], ref["jnp"]
@@ -149,15 +154,20 @@ def test_full_width_container_size_matches_reference(arch, ref):
 
 
 def test_full_width_classes_of_the_smoke_run():
-    """chip_smoke.py's KissServer: the f32 estimates put starcoder2-3b in
-    the small pool and glm4-9b in the large one."""
-    reg = {a: get_config(a) for a in ("starcoder2-3b", "glm4-9b")}
-    srv = KissServer(reg, total_mb=64_000, small_frac=0.25,
-                     threshold_mb=20_000)
-    assert srv.size_mb("starcoder2-3b") == pytest.approx(12_722.491392)
-    assert srv.size_mb("glm4-9b") == pytest.approx(37_599.051776)
-    assert srv._pool_for("starcoder2-3b") is srv.small_pool
-    assert srv._pool_for("glm4-9b") is srv.large_pool
+    """chip_smoke.py's KissServer: the f32 estimates put starcoder2-3b
+    and zamba2-1.2b in the small pool and rwkv6-7b and glm4-9b in the
+    large one, and each pool holds both of its models at once."""
+    reg = {a: get_config(a) for a in ("starcoder2-3b", "rwkv6-7b",
+                                      "zamba2-1.2b", "glm4-9b")}
+    srv = KissServer(reg, **SMOKE_BUDGET)
+    want = {"starcoder2-3b": 12_722.491392, "rwkv6-7b": 30_065.819648,
+            "zamba2-1.2b": 6_186.377216, "glm4-9b": 37_599.051776}
+    for m, mb in want.items():
+        assert srv.size_mb(m) == pytest.approx(mb)
+    small, large = ("starcoder2-3b", "zamba2-1.2b"), ("rwkv6-7b", "glm4-9b")
+    for models, pool in ((small, srv.small_pool), (large, srv.large_pool)):
+        assert all(srv._pool_for(m) is pool for m in models)
+        assert sum(want[m] for m in models) <= pool.cfg.capacity_mb
 
 
 # ---------------------------------------------------------------------------
@@ -246,11 +256,14 @@ def test_container_logits_match_reference(ref, ref_containers):
 
 
 def test_serve_cli_and_registry(capsys):
-    assert T_serve.main(["--device", "cpu", "--n-archs", "1",
-                         "--requests", "4"]) == 0
+    """The CLI's default registry (four archs: dense, SSM, hybrid) runs;
+    a sixth arch brings the MoE family, which is not ported."""
+    assert T_serve.main(["--device", "cpu", "--requests", "8"]) == 0
     assert "KiSS(80-20)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="B5"):
-        T_serve.default_registry(2)
+    assert list(T_serve.default_registry(4)) == [
+        "starcoder2-3b", "rwkv6-7b", "zamba2-1.2b", "glm4-9b"]
+    with pytest.raises(NotImplementedError, match="moe.py"):
+        T_serve.default_registry(6)
 
 
 def test_batcher_groups_and_pads():
@@ -279,25 +292,33 @@ def test_default_device_is_cuda(monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "glm4-9b"])
+@pytest.mark.parametrize("arch", SIZED)
 def test_container_on_card_launches_the_kernels(arch):
-    """Warm-up (one prefill, one decode) and a generate of 4 tokens: B3
-    once a layer a prefill, B2 once a layer a decode step; logits equal
-    the same weights' CPU run within 1e-4 (f32 kernels against the plain
-    versions, cuBLAS against the CPU's matmuls)."""
+    """Warm-up (one prefill, one decode) and a generate of 4 tokens: per
+    prefill B3 once an attention position and B4 once a Mamba layer; per
+    decode step B2 once an attention position; B5 once an RWKV layer per
+    prefill and per decode step.  Logits equal the same weights' CPU run
+    within 1e-4 (f32 kernels against the plain versions, cuBLAS against
+    the CPU's matmuls)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (run on the GPU host)")
     cfg = get_config(arch).reduced()
-    f0, d0 = flash_attention_cuda.launches, decode_attention_cuda.launches
+    kernels = (flash_attention_cuda, decode_attention_cuda, ssm_scan_cuda,
+               wkv6_cuda)
+    before = [k.launches for k in kernels]
     c = ModelContainer(cfg, device="cuda", **CKW)
     prompt = np.random.default_rng(9).integers(
         0, cfg.vocab_size, (2, 12)).astype(np.int32)
     tokens, logits = c.generate_with_logits(prompt, 4)
-    L = cfg.n_layers
-    assert flash_attention_cuda.launches - f0 == 2 * L
-    assert decode_attention_cuda.launches - d0 == (1 + 3) * L
+    kinds = cfg.layer_kinds()
+    attn, mamba, rwkv = (kinds.count(k) for k in ("attn", "mamba", "rwkv"))
+    prefills, decodes = 2, 1 + 3
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        attn * prefills, attn * decodes, mamba * prefills,
+        rwkv * (prefills + decodes)]
     cpu = ModelContainer(cfg, device="cpu", **CKW)
-    cpu.params = torch.utils._pytree.tree_map(lambda t: t.cpu(), c.params)
+    cpu.params = torch.utils._pytree.tree_map(
+        lambda t: None if t is None else t.cpu(), c.params)
     want_tokens, want = cpu.generate_with_logits(prompt, 4)
     np.testing.assert_allclose(logits.cpu().numpy(), want.numpy(),
                                rtol=1e-4, atol=1e-4)
