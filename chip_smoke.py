@@ -14,10 +14,14 @@ Phases, each printing its own lines:
    batches at the simulator's shapes and a ragged one, bitwise on every
    output, then timed per launch with CUDA events;
 4. kernels B3 (flash attention) and B2 (decode attention) against their
-   plain versions at the serving path's shapes, long shapes and ragged
-   ones, in bf16 (tolerance 2e-2) and f32 (2e-5), absolute and relative,
-   the JAX reference's own ``TOL``; then timed beside the plain version,
-   ``scaled_dot_product_attention`` and the bound;
+   plain versions at the serving path's shapes (starcoder2-3b, glm4-9b
+   and zamba2-1.2b's shared MHA block), long shapes and ragged ones, in
+   bf16 (tolerance 2e-2) and f32 (2e-5), absolute and relative, the JAX
+   reference's own ``TOL``; the profiler must see the tensor-core kernels
+   (``flash_wgmma_kernel``, ``decode_mma_kernel``) run in bf16 and the
+   CUDA-core ones (``flash_fma_kernel``, ``decode_fma_kernel``) in f32;
+   then timed beside the plain version, ``scaled_dot_product_attention``
+   and the bound;
 5. kernels B4 (the Mamba2 SSD scan) and B5 (the RWKV6 WKV recurrence)
    against their plain versions at zamba2's and rwkv6's serving prefill
    (and rwkv6's decode, S = 1), at 4,096 steps and at a ragged length
@@ -182,21 +186,30 @@ def kernel_ms(fn, names, iters: int = 20) -> dict:
     """Device milliseconds per call of each ``__global__`` kernel whose
     name contains one of ``names``, from ``torch.profiler`` over ``iters``
     calls: the kernels' own run time, without the gaps between launches
-    that the CUDA-event time includes."""
+    that the CUDA-event time includes.  Fails when a name is not in the
+    profile, so a renamed kernel or a call that took another path cannot
+    drop out of the measurements unseen."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        for n in names:
-            if n in e.key:
-                out[n] = out.get(n, 0.0) + getattr(
-                    e, "self_device_time_total", 0.0) / 1e3 / iters
-    return out
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            for n in names:
+                if n in e.key:
+                    out[n] = out.get(n, 0.0) + getattr(
+                        e, "self_device_time_total", 0.0) / 1e3 / iters
+        missing = [n for n in names if n not in out]
+        if not missing:
+            return out
+        # the first session of a process has come back without any kernel
+        # record (only the launch calls): measure once more before failing
+    check(False, f"kernels {missing} not in the profile (saw "
+          f"{sorted(e.key for e in prof.key_averages())})")
 
 
 def evict_place_bound_ms(p: int, s: int) -> tuple[float, str]:
@@ -252,6 +265,14 @@ def kernel_phase(dev) -> dict:
 #: Attention tolerance, absolute and relative, the JAX reference's own
 #: ``TOL`` (tests/test_kernels.py:14).
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+#: The ``__global__`` kernels each wrapper launches, by dtype: bf16 runs
+#: on the tensor cores (``wgmma`` for B3, ``mma.sync`` for B2), f32 on the
+#: CUDA cores; B2's combine kernel follows either split kernel.
+FLASH_KERNELS = {torch.bfloat16: ["flash_wgmma_kernel"],
+                 torch.float32: ["flash_fma_kernel"]}
+DECODE_KERNELS = {
+    torch.bfloat16: ["decode_mma_kernel", "decode_combine_kernel"],
+    torch.float32: ["decode_fma_kernel", "decode_combine_kernel"]}
 
 #: name: (B, Sq, Skv, H, KV, D, causal, window, q_offset).  "path-*" is
 #: the serving path's prefill (32 tokens, max_batch 2); the long shapes a
@@ -259,6 +280,8 @@ ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 FLASH_SHAPES = {
     "path-starcoder2": (2, 32, 32, 24, 2, 128, True, 4096, 0),
     "path-glm4": (2, 32, 32, 32, 2, 128, True, None, 0),
+    # zamba2-1.2b's shared block: MHA, 32 heads of 64 (G = 1)
+    "path-zamba2": (2, 32, 32, 32, 32, 64, True, None, 0),
     "long-h24-w4096": (2, 4096, 4096, 24, 2, 128, True, 4096, 0),
     "long-h24-w1024": (2, 4096, 4096, 24, 2, 128, True, 1024, 0),
     "long-h32-w4096": (2, 4096, 4096, 32, 2, 128, True, 4096, 0),
@@ -273,6 +296,7 @@ FLASH_SHAPES = {
 DECODE_SHAPES = {
     "path-starcoder2": (2, 4096, 24, 2, 128, 4096, "serving", 35),
     "path-glm4": (2, 4096, 32, 2, 128, None, "serving", 35),
+    "path-zamba2": (2, 4096, 32, 32, 64, None, "serving", 35),
     "ring-holes-h24-w4096": (2, 4096, 24, 2, 128, 4096, "ring-holes", 6000),
     "ring-holes-h32-w1024": (2, 4096, 32, 2, 128, 1024, "ring-holes", 6000),
     "ragged-holes": (3, 1000, 24, 2, 128, None, "holes", 999),
@@ -374,7 +398,7 @@ def attention_phase(dev) -> dict:
     for name, shape in FLASH_SHAPES.items():
         b, sq, skv, h, kv, d, causal, window, q_offset = shape
         kw = dict(causal=causal, window=window, q_offset=q_offset)
-        errs = {}
+        errs, f32_kern = {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_case(shape, dtype, dev, sq + h)
             got = flash_attention_cuda(q, k, v, **kw)
@@ -382,6 +406,10 @@ def attention_phase(dev) -> dict:
             torch.cuda.synchronize()
             errs[str(dtype)] = close_check(got, want, dtype,
                                            f"flash {name} {dtype}")
+            if dtype == torch.float32:      # the CUDA-core kernel ran
+                f32_kern = kernel_ms(
+                    lambda: flash_attention_cuda(q, k, v, **kw),
+                    FLASH_KERNELS[dtype], 2 if sq >= 1024 else 5)
         iters = 10 if sq >= 1024 else 100
         ms = device_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters)
         call = call_ms(lambda: flash_attention_cuda(q, k, v, **kw), iters)
@@ -408,11 +436,12 @@ def attention_phase(dev) -> dict:
         lib_ms = device_ms(lib, iters)
         bound, bound_by = flash_bound_ms(*shape, torch.bfloat16)
         kern = kernel_ms(lambda: flash_attention_cuda(q, k, v, **kw),
-                         ["flash_fwd_kernel"], 5 if sq >= 1024 else 20)
+                         FLASH_KERNELS[torch.bfloat16],
+                         5 if sq >= 1024 else 20)
         out["flash"].append(dict(
             shape=name, dims=list(shape[:6]), window=window,
             q_offset=q_offset, max_abs_err=errs, ms=ms, call_ms=call,
-            kernel_ms=kern,
+            kernel_ms=kern, f32_kernel_ms=f32_kern,
             plain_ms=plain, library_ms=lib_ms, library_max_abs_diff=lib_err,
             bound_ms=bound, bound_by=bound_by))
         print(f"kernel flash_attention {name} {list(shape[:6])} w={window}: "
@@ -421,10 +450,11 @@ def attention_phase(dev) -> dict:
               f"us/launch ({call * 1e3:.2f} us a call back to back; the "
               f"kernel itself {fmt_us(kern)}), plain "
               f"{plain * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us, bound "
-              f"{bound * 1e3:.3f} us ({bound_by})", flush=True)
+              f"{bound * 1e3:.3f} us ({bound_by}); f32 on "
+              f"{fmt_us(f32_kern)}", flush=True)
     for name, shape in DECODE_SHAPES.items():
         window = shape[5]
-        errs = {}
+        errs, f32_kern = {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, sp, cur = decode_case(shape, dtype, dev, shape[1])
             got = decode_attention_cuda(q, k, v, sp, cur, window=window)
@@ -432,6 +462,11 @@ def attention_phase(dev) -> dict:
             torch.cuda.synchronize()
             errs[str(dtype)] = close_check(got, want, dtype,
                                            f"decode {name} {dtype}")
+            if dtype == torch.float32:      # the CUDA-core kernel ran
+                f32_kern = kernel_ms(
+                    lambda: decode_attention_cuda(q, k, v, sp, cur,
+                                                  window=window),
+                    DECODE_KERNELS[dtype], 5)
         ms = device_ms(lambda: decode_attention_cuda(q, k, v, sp, cur,
                                                      window=window), 200)
         call = call_ms(lambda: decode_attention_cuda(q, k, v, sp, cur,
@@ -453,11 +488,12 @@ def attention_phase(dev) -> dict:
         bound, bound_by = decode_bound_ms(q, k, sp, cur, window)
         kern = kernel_ms(lambda: decode_attention_cuda(q, k, v, sp, cur,
                                                        window=window),
-                         ["decode_split_kernel", "decode_combine_kernel"])
+                         DECODE_KERNELS[torch.bfloat16])
         out["decode"].append(dict(
             shape=name, dims=list(shape[:5]), window=window, fill=shape[6],
             visible_slots=int(vis.sum()), max_abs_err=errs, ms=ms,
-            call_ms=call, kernel_ms=kern, plain_ms=plain,
+            call_ms=call, kernel_ms=kern, f32_kernel_ms=f32_kern,
+            plain_ms=plain,
             library_ms=lib_ms, library_max_abs_diff=lib_err,
             bound_ms=bound, bound_by=bound_by))
         print(f"kernel decode_attention {name} {list(shape[:5])} "
@@ -467,7 +503,8 @@ def attention_phase(dev) -> dict:
               f"us/launch ({call * 1e3:.2f} us a call back to back; the "
               f"kernels themselves {fmt_us(kern)}), plain "
               f"{plain * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us, bound "
-              f"{bound * 1e3:.3f} us ({bound_by})", flush=True)
+              f"{bound * 1e3:.3f} us ({bound_by}); f32 on "
+              f"{fmt_us(f32_kern)}", flush=True)
     return out
 
 
@@ -1188,7 +1225,6 @@ def main() -> int:
           flush=True)
     t_start = time.perf_counter()
     build_phase(_build)
-
     kernels = kernel_phase(dev)
     attention = attention_phase(dev)
     scans = scan_phase(dev)
@@ -1220,14 +1256,14 @@ def main() -> int:
                    "src/repro/kernels/flash_attention.py:26",
                    attention["flash"], "path-starcoder2",
                    serving["launches"]["flash_attention"],
-                   ["flash_fwd_kernel"]),
+                   FLASH_KERNELS[torch.bfloat16]),
                kernel_entry(
                    "decode_attention",
                    "src/repro_torch/kernels/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:30",
                    attention["decode"], "path-starcoder2",
                    serving["launches"]["decode_attention"],
-                   ["decode_split_kernel", "decode_combine_kernel"]),
+                   DECODE_KERNELS[torch.bfloat16]),
                kernel_entry(
                    "ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                    "src/repro/kernels/ssm_scan.py:29", scans["ssm_scan"],

@@ -1,7 +1,7 @@
 // Decode attention for Hopper, hand-written in CUDA C++ (split-KV).
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py::_kernel
-// (pallas_call at :86, wrapper decode_attention_pallas :69).  Same
+// (:30; pallas_call at :86, wrapper decode_attention_pallas :69).  Same
 // function: one query token per sequence against a (ring) KV cache with
 // GQA; a slot is visible when 0 <= slot_pos <= cur and, with a window,
 // slot_pos > cur - window; f32 online softmax with a finite NEG_INF and a
@@ -9,21 +9,41 @@
 // grid walks the cache sequentially per (b, kv head), which on this card
 // would light B * KV SMs (4 on the serving path).  Here the cache is cut
 // into chunks of 128 slots, one block per (chunk, kv head, b) holding the
-// G query heads of the group, and a second kernel combines the chunks'
-// partial (max, sum, weighted values).  A block first stages its visible
-// K and V rows in shared memory with asynchronous 16-byte copies (a first
-// version read them inside its loops and waited on each load in turn),
-// then computes the scores a thread a slot and the weighted values a
-// thread a column.
+// G query heads of the group, and a second kernel (decode_combine_kernel)
+// combines the chunks' partial (max, sum, weighted values).  A chunk with
+// no visible slot exits after reading its slot_pos.
 //
 // What bounds it on this card: bytes.  Each visible slot's K and V rows
 // must be read once (2 * D * KV * itemsize a slot), against 4 * D
 // operations a slot and query head.  A slot that is not visible is never
 // read: only slot_pos is, so a cache that is mostly empty (the serving
 // path decodes at positions ~32-40 of 4,096 slots) costs the bytes of its
-// filled slots, not of its size.  A query row that sees no slot at all
-// gets, as in the reference, the mean of all V rows: the combine kernel
-// computes it in that case only.
+// filled slots, not of its size.  At those sizes the launches' latency
+// and each block's chain of dependent steps bound it, not the bytes.  A
+// query row that sees no slot at all gets, as in the reference, the mean
+// of all V rows: the combine kernel computes it in that case only.
+//
+// bf16 (every call the serving path makes): decode_mma_kernel, on the
+// tensor cores, all four warps busy.  The group's G query heads are the M
+// rows of mma.sync.m16n8k16 (bf16 in, f32 accumulate), padded with zero
+// rows to 16 * MT (MT = 1 for G <= 16, 3 for G = 48) that are never
+// stored; q is staged in shared memory as bf16, pre-scaled in its own
+// dtype as the reference oracle scales it.  The visible K and V rows
+// arrive by asynchronous 16-byte copies (cp.async) into rows padded to
+// D + 8 so that ldmatrix spreads over the banks; invisible V rows inside a
+// 16-slot step that has a visible one are zero-filled, and steps with no
+// visible slot are skipped.  Scores: each warp takes 32 of the chunk's
+// slots, S [16 MT x 32] = Q K^T over D / 16 steps (K by ldmatrix).
+// Softmax: invisible slots at NEG_INF, each row's max and sum reduced
+// over a quad by shuffles and across the four warps in shared memory;
+// P is rounded to bf16 (as the oracle's p.astype(v.dtype)) into shared
+// memory.  Values: each warp takes D / 4 columns, acc [16 MT x D / 4] =
+// P V over the chunk's 16-slot steps (P by ldmatrix, V by ldmatrix.trans),
+// so no warp's accumulator grows with G and none is summed across warps.
+//
+// f32 (the tests' dtype, held at 2e-5, which TF32 tensor cores cannot
+// meet): decode_fma_kernel, the same staging, then scores a thread a slot
+// and weighted values a thread a column, as f32 FMAs.
 //
 // Inputs are contiguous q [B, H, D], k/v [B, S, KV, D] in bf16 or f32,
 // slot_pos i32 [B, S], cur i32 [B]; output [B, H, D] in q's dtype; q, k
@@ -33,6 +53,7 @@
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -45,36 +66,298 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-// eight consecutive elements from a 16-byte aligned address
+// eight consecutive floats from a 16-byte aligned address
 __device__ __forceinline__ void load8(const float* p, float out[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename T, int D>
+// ---------------------------------------------------------------------------
+// bf16: mma.sync over the GQA group
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int D, int MT>
+constexpr size_t mma_smem_bytes() {
+  // K and V [CHUNK][D + 8], q [16 MT][D + 8] and P [16 MT][CHUNK + 8], bf16
+  return 2 * (2 * CHUNK * (D + 8) + 16 * MT * (D + 8) + 16 * MT * (CHUNK + 8));
+}
+
+template <int D, int MT>
 __global__ void __launch_bounds__(NT)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc,
-                    const int* __restrict__ slot_pos,
-                    const int* __restrict__ cur, float* __restrict__ part_m,
-                    float* __restrict__ part_l, float* __restrict__ part_acc,
-                    int S, int H, int KV, float scale, int window) {
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ kc,
+                  const __nv_bfloat16* __restrict__ vc,
+                  const int* __restrict__ slot_pos,
+                  const int* __restrict__ cur, float* __restrict__ part_m,
+                  float* __restrict__ part_l, float* __restrict__ part_acc,
+                  int S, int H, int KV, float scale, int window) {
+  constexpr int M = 16 * MT;                // padded group rows
+  constexpr int DP = D + 8;                 // row pitches (bf16), padded so
+  constexpr int PP = CHUNK + 8;             // ldmatrix rows hit all banks
+  constexpr int NW = NT / 32;
+  constexpr int WN = D / NW;                // value columns a warp
+  constexpr int NJ = WN / 8;                // n8 tiles a warp
+  static_assert(CHUNK == NW * 32 && NJ % 2 == 0, "tiling");
+  const int G = H / KV;
+  const int chunk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x;
+  const int s0 = chunk * CHUNK;
+  const int n = min(CHUNK, S - s0);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* vs = ks + CHUNK * DP;
+  __nv_bfloat16* qs = vs + CHUNK * DP;
+  __nv_bfloat16* ps = qs + M * DP;
+  __shared__ int vis[CHUNK];
+  __shared__ unsigned step_mask;            // bit i: slots 16i.. visible
+  __shared__ float red_m[NW][M], red_l[NW][M];
+
+  // visibility: a thread a slot (CHUNK == NT)
+  const int c = cur[b];
+  int ok = 0;
+  if (tid < n) {
+    const int sp = slot_pos[(size_t)b * S + s0 + tid];
+    ok = sp >= 0 && sp <= c && (window <= 0 || sp > c - window);
+  }
+  vis[tid] = ok;
+  const unsigned wmask = __ballot_sync(0xffffffffu, ok);
+  if (tid == 0) step_mask = 0;
+  __syncthreads();
+  if (lane == 0 && wmask)
+    atomicOr(&step_mask, ((wmask & 0xffffu) ? 1u : 0u) << (2 * warp) |
+                             ((wmask >> 16) ? 1u : 0u) << (2 * warp + 1));
+  __syncthreads();
+  const unsigned steps = step_mask;
+
+  const size_t part = ((size_t)b * KV + kvh) * n_chunks + chunk;
+  if (steps == 0) {              // nothing to read: an empty partial
+    for (int i = tid; i < G; i += NT) {
+      part_m[part * G + i] = NEG_INF;
+      part_l[part * G + i] = 0.f;
+    }
+    return;
+  }
+
+  // stage the visible K and V rows; zero V's invisible rows inside a
+  // 16-slot step that is read (P is 0 there, and 0 * NaN would not be)
+  const size_t row = (size_t)KV * D;
+  const __nv_bfloat16* kb = kc + ((size_t)b * S + s0) * row + (size_t)kvh * D;
+  const __nv_bfloat16* vb = vc + ((size_t)b * S + s0) * row + (size_t)kvh * D;
+  constexpr int VPR = D / 8;                // 16-byte vectors a row
+  for (int i = tid; i < CHUNK * VPR; i += NT) {
+    const int j = i / VPR, e = i % VPR * 8;
+    if (vis[j]) {
+      __pipeline_memcpy_async(ks + j * DP + e, kb + (size_t)j * row + e, 16);
+      __pipeline_memcpy_async(vs + j * DP + e, vb + (size_t)j * row + e, 16);
+    } else if (steps >> (j / 16) & 1u) {
+      *reinterpret_cast<uint4*>(vs + j * DP + e) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  __pipeline_commit();
+  // meanwhile the group's queries, scaled in bf16; padded rows are zero
+  const __nv_bfloat16* qb = q + ((size_t)b * H + (size_t)kvh * G) * D;
+  for (int i = tid; i < M * VPR; i += NT) {
+    const int r = i / VPR, e = i % VPR * 8;
+    uint4 out = make_uint4(0, 0, 0, 0);
+    if (r < G) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(qb + r * D + e);
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 f = __bfloat1622float2(x[u]);
+        y[u] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+    }
+    *reinterpret_cast<uint4*>(qs + r * DP + e) = out;
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // scores: this warp's slots 32 warp .. + 31, as four n8 tiles;
+  // s[mi][j] = rows 16 mi + g (+ 8), slots 32 warp + 8 j + 2 t (+ 1)
+  float s[MT][4][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mi][j][e] = 0.f;
+  const uint32_t qs_a = smem_u32(qs), ks_a = smem_u32(ks);
+  const uint32_t vs_a = smem_u32(vs), ps_a = smem_u32(ps);
+  if (wmask) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t kb4[2][4];   // b0, b1 of tiles (0, 1) and (2, 3)
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        const int r = 32 * warp + 8 * (2 * jp + lane / 16) + lane % 8;
+        ldsm_x4(ks_a + 2 * (r * DP + 16 * kk + (lane / 8 % 2) * 8), kb4[jp]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        uint32_t a[4];
+        ldsm_x4(qs_a + 2 * ((16 * mi + lane % 16) * DP + 16 * kk +
+                            (lane / 16) * 8), a);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16(s[mi][j], a, kb4[j / 2][2 * (j % 2)],
+                   kb4[j / 2][2 * (j % 2) + 1]);
+      }
+    }
+  }
+  // mask, and each row's max over this warp's slots
+  bool v2[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) v2[j][e] = vis[32 * warp + 8 * j + 2 * t + e];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[mi][j][e] = v2[j][e % 2] ? s[mi][j][e] : NEG_INF;
+        mx[e / 2] = fmaxf(mx[e / 2], s[mi][j][e]);
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      if (t == 0) red_m[warp][16 * mi + g + 8 * hh] = mx[hh];
+    }
+  }
+  __syncthreads();
+  // the chunk's max; weights (0 where not visible) to P in bf16, and sums
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * mi + g + 8 * hh;
+      float m = red_m[0][r];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) m = fmaxf(m, red_m[w][r]);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p0 = v2[j][0] ? expf(s[mi][j][2 * hh] - m) : 0.f;
+        const float p1 = v2[j][1] ? expf(s[mi][j][2 * hh + 1] - m) : 0.f;
+        sum += p0 + p1;
+        *reinterpret_cast<__nv_bfloat162*>(
+            ps + r * PP + 32 * warp + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(p0, p1);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (t == 0) red_l[warp][r] = sum;
+      if (warp == 0 && t == 0 && r < G) part_m[part * G + r] = m;
+    }
+  }
+  __syncthreads();
+  for (int r = tid; r < G; r += NT) {
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) l += red_l[w][r];
+    part_l[part * G + r] = l;
+  }
+
+  // weighted values: this warp's columns n0 .. n0 + WN - 1, over the
+  // chunk's 16-slot steps that hold a visible slot
+  const int n0 = warp * WN;
+  float acc[MT][NJ][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < CHUNK / 16; ++kk) {
+    if (!(steps >> kk & 1u)) continue;
+    uint32_t vb4[NJ / 2][4];   // b0, b1 of tiles (2 jp, 2 jp + 1)
+#pragma unroll
+    for (int jp = 0; jp < NJ / 2; ++jp) {
+      const int r = 16 * kk + (lane / 8 % 2) * 8 + lane % 8;
+      ldsm_x4_trans(vs_a + 2 * (r * DP + n0 + 8 * (2 * jp + lane / 16)),
+                    vb4[jp]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      uint32_t a[4];
+      ldsm_x4(ps_a + 2 * ((16 * mi + lane % 16) * PP + 16 * kk +
+                          (lane / 16) * 8), a);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mma_bf16(acc[mi][j], a, vb4[j / 2][2 * (j % 2)],
+                 vb4[j / 2][2 * (j % 2) + 1]);
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * mi + g + 8 * hh;
+      if (r >= G) continue;
+      float* out = part_acc + (part * G + r) * D + n0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[mi][j][2 * hh], acc[mi][j][2 * hh + 1]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMAs on the CUDA cores
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+decode_fma_kernel(const float* __restrict__ q, const float* __restrict__ kc,
+                  const float* __restrict__ vc,
+                  const int* __restrict__ slot_pos,
+                  const int* __restrict__ cur, float* __restrict__ part_m,
+                  float* __restrict__ part_l, float* __restrict__ part_acc,
+                  int S, int H, int KV, float scale, int window) {
+  using T = float;
   static_assert(CHUNK == NT, "a thread a slot in the score pass");
   constexpr int TPD = NT / D;               // threads sharing a column
   const int G = H / KV;
@@ -287,9 +570,26 @@ decode_combine_kernel(const T* __restrict__ vc,
       if (lane == 0) count = n;
     }
     __syncthreads();
+    // eight chunks' loads in flight before their sums: a load a chunk in
+    // turn left the loop waiting on each (~6 us over 32 chunks)
     float l = 0.f, acc = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < count; ++k) {
+    int k = 0;
+    for (; k + 8 <= count; k += 8) {
+      float w[8], pl[8], pa[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = list[k + u];
+        w[u] = wts[i];
+        pl[u] = part_l[(base + i) * G + g];
+        pa[u] = part_acc[((base + i) * G + g) * D + d];
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        l = fmaf(w[u], pl[u], l);
+        acc = fmaf(w[u], pa[u], acc);
+      }
+    }
+    for (; k < count; ++k) {
       const int i = list[k];
       const float w = wts[i];
       l = fmaf(w, part_l[(base + i) * G + g], l);
@@ -300,6 +600,52 @@ decode_combine_kernel(const T* __restrict__ vc,
   store(o + ((size_t)b * H + h) * D + d, out);
 }
 
+template <int D, int MT>
+int launch_mma(const void* q, const void* k, const void* v, const int* sp,
+               const int* cur, float* pm, float* pl, float* pa, int B, int S,
+               int H, int KV, float scale, int window, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D, MT>();
+  auto split = decode_mma_kernel<D, MT>;
+  static bool smem_set = false;      // once: the call costs host time
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  split<<<dim3((S + CHUNK - 1) / CHUNK, KV, B), NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), sp, cur, pm, pl, pa, S, H, KV,
+      scale, window);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_fma(const void* q, const void* k, const void* v, const int* sp,
+               const int* cur, float* pm, float* pl, float* pa, int B, int S,
+               int H, int KV, float scale, int window, cudaStream_t stream) {
+  const int G = H / KV;
+  const size_t smem = (size_t)G * (D + CHUNK) * sizeof(float)
+                      + 2 * CHUNK * (D * sizeof(float) + 16)
+                      + CHUNK * sizeof(int);
+  auto split = decode_fma_kernel<D>;
+  // raise the kernel's shared-memory limit only when a launch needs more
+  // than an earlier one did: the call costs host time on every launch
+  static size_t smem_set = 0;
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  split<<<dim3((S + CHUNK - 1) / CHUNK, KV, B), NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), sp, cur, pm, pl, pa, S, H, KV, scale,
+      window);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* sp,
            const int* cur, float* pm, float* pl, float* pa, void* o, int B,
@@ -307,26 +653,24 @@ int launch(const void* q, const void* k, const void* v, const int* sp,
            cudaStream_t stream) {
   const int G = H / KV;
   const int n_chunks = (S + CHUNK - 1) / CHUNK;
-  const size_t smem = (size_t)G * (D + CHUNK) * sizeof(float)
-                      + 2 * CHUNK * (D * sizeof(T) + 16)
-                      + CHUNK * sizeof(int);
-  auto split = decode_split_kernel<T, D>;
-  // raise the kernel's shared-memory limit only when a launch needs more
-  // than an earlier one did: the call costs host time on every launch
-  static size_t smem_set = 0;
-  cudaError_t err;
-  if (smem > smem_set) {
-    err = cudaFuncSetAttribute(
-        split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
+  int rc;
+  if constexpr (sizeof(T) == 4) {
+    rc = launch_fma<D>(q, k, v, sp, cur, pm, pl, pa, B, S, H, KV, scale,
+                       window, stream);
+  } else {
+    switch ((G + 15) / 16) {   // the group's rows in tiles of 16
+      case 1: rc = launch_mma<D, 1>(q, k, v, sp, cur, pm, pl, pa, B, S, H,
+                                    KV, scale, window, stream); break;
+      case 2: rc = launch_mma<D, 2>(q, k, v, sp, cur, pm, pl, pa, B, S, H,
+                                    KV, scale, window, stream); break;
+      case 3: rc = launch_mma<D, 3>(q, k, v, sp, cur, pm, pl, pa, B, S, H,
+                                    KV, scale, window, stream); break;
+      case 4: rc = launch_mma<D, 4>(q, k, v, sp, cur, pm, pl, pa, B, S, H,
+                                    KV, scale, window, stream); break;
+      default: return -1;
+    }
   }
-  split<<<dim3(n_chunks, KV, B), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), sp, cur, pm, pl, pa, S, H, KV, scale,
-      window);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (rc != 0) return rc;
   decode_combine_kernel<T, D><<<dim3(H, B), D,
                                  2 * n_chunks * sizeof(float), stream>>>(
       static_cast<const T*>(v), pm, pl, pa, static_cast<T*>(o), S, H, KV,
@@ -338,8 +682,9 @@ int launch(const void* q, const void* k, const void* v, const int* sp,
 
 extern "C" int decode_attention_chunk() { return CHUNK; }
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means none.  Returns the
-// CUDA error of the launches (0 on success); -1 for an unsupported D/dtype.
+// dtype: 0 = float32 (decode_fma_kernel), 1 = bfloat16 (decode_mma_kernel);
+// then decode_combine_kernel.  window <= 0 means none.  Returns the CUDA
+// error of the launches (0 on success); -1 for an unsupported D/dtype/G.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const int* slot_pos,
                                        const int* cur, float* part_m,

@@ -9,7 +9,10 @@ position in each slot (-1 when empty).  A slot is visible when
 
 * :func:`decode_attention_cuda` launches ``csrc/decode_attention.cu`` (a
   split kernel over chunks of the cache, then a combine kernel) on a CUDA
-  tensor and raises on anything else;
+  tensor and raises on anything else: in bf16 the split kernel is
+  ``decode_mma_kernel`` (``mma.sync`` on the tensor cores, the GQA
+  group's query heads as the M rows), in f32 ``decode_fma_kernel`` (f32
+  FMAs on the CUDA cores, which the f32 tolerance of 2e-5 needs);
 * :func:`decode_attention_plain` is the oracle in plain torch.
 
 ``repro_torch.kernels.ops.decode_attention`` takes the kernel for CUDA

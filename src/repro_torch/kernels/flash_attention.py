@@ -8,7 +8,10 @@ causal with query position ``q_offset + i``, and optionally only the last
 ``window`` keys.
 
 * :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` on a
-  CUDA tensor and raises on anything else;
+  CUDA tensor and raises on anything else: bf16 runs
+  ``flash_wgmma_kernel`` (``wgmma`` on the tensor cores, K/V tiles by
+  TMA), f32 runs ``flash_fma_kernel`` (f32 FMAs on the CUDA cores, which
+  the f32 tolerance of 2e-5 needs: TF32 tensor cores keep ~3 digits);
 * :func:`flash_attention_plain` is the oracle in plain torch,
   query-chunked as the reference's is, on any device.
 
@@ -116,8 +119,9 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, scale=None,
     Same contract as :func:`flash_attention_plain`.  Raises on tensors
     that are not on a CUDA device, not contiguous, of other dtypes than
     float32/bfloat16 (one for all three), a head dim other than 64 or 128,
-    a query row that would see no key, and when the build or the launch
-    fails.  Counts its launches in ``flash_attention_cuda.launches``."""
+    a query row that would see no key, and when the build, a tensor map
+    (bf16) or the launch fails.  Counts its launches in
+    ``flash_attention_cuda.launches``."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
@@ -135,9 +139,13 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, scale=None,
                 0 if window is None else int(window), int(q_offset),
                 ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc} at q {tuple(q.shape)}, kv "
-                           f"{tuple(k.shape)}, {q.dtype}")
+        what = (f"the driver refused a tensor map (CUresult {-rc - 1000})"
+                if rc <= -1000 else
+                "the driver has no cuTensorMapEncodeTiled" if rc == -2 else
+                f"CUDA error {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed: {what} "
+                           f"at q {tuple(q.shape)}, kv {tuple(k.shape)}, "
+                           f"{q.dtype}")
     flash_attention_cuda.launches += 1
     return out
 

@@ -4,11 +4,14 @@ port.
 On the CPU the port's plain versions are held against the reference's
 oracles (``repro.kernels.ref``) and its Pallas kernels in interpret mode,
 as ``tests/test_kernels.py`` runs them, at a few of its shapes (MQA, GQA,
-a window, ragged lengths, holes in the cache).  The tolerance is the
-reference's own ``TOL``: 2e-5 in f32, 2e-2 in bf16 (absolute and
-relative).  On the card (marker ``cuda``) each CUDA kernel is held
-against its plain version at the same tolerances.  The reference is
-imported inside fixtures, so the file also collects where JAX is absent.
+zamba2's MHA with D = 64 and G = 1, a group of 24 heads, a window,
+ragged lengths, holes in the cache).  The tolerance is the reference's
+own ``TOL``: 2e-5 in f32, 2e-2 in bf16 (absolute and relative).  On the
+card (marker ``cuda``) each CUDA kernel is held against its plain
+version at the same tolerances: in bf16 that is the tensor-core kernel
+(``wgmma`` for B3, ``mma.sync`` for B2), in f32 the CUDA-core one.  The
+reference is imported inside fixtures, so the file also collects where
+JAX is absent.
 """
 import numpy as np
 import pytest
@@ -89,11 +92,15 @@ FLASH_CASES = {   # name: (b, sq, skv, h, kv, d, causal, window, q_offset)
     "gqa-window": (2, 256, 256, 8, 2, 64, True, 96, 0),
     "wide-noncausal": (1, 128, 128, 4, 4, 128, False, None, 0),
     "ragged-offset": (2, 37, 70, 6, 2, 64, True, 40, 33),
+    "zamba2-mha": (2, 96, 96, 4, 4, 64, True, None, 0),
+    "gqa24-ragged": (1, 100, 100, 24, 1, 128, True, None, 0),
 }
 DECODE_CASES = {  # name: (b, s, h, kv, d, window)
     "gqa": (2, 1024, 8, 2, 64, None),
     "mqa-ring": (2, 1024, 8, 1, 128, 600),
     "ragged-window": (3, 300, 12, 2, 64, 100),
+    "zamba2-mha": (2, 512, 4, 4, 64, None),
+    "gqa24-ragged": (1, 200, 24, 1, 128, None),
 }
 
 
@@ -112,7 +119,8 @@ def test_flash_plain_matches_reference_oracle(case, dtype, ref):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["mqa", "gqa-window"])
+@pytest.mark.parametrize("case", ["mqa", "gqa-window", "zamba2-mha",
+                                  "gqa24-ragged"])
 def test_flash_plain_matches_pallas_interpret(case, dtype, ref):
     b, sq, skv, h, kv, d, causal, window, q_offset = FLASH_CASES[case]
     arrays = flash_inputs(2, b, sq, skv, h, kv, d)
@@ -144,7 +152,8 @@ def test_decode_plain_matches_reference_oracle(case, dtype, ref):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["gqa", "mqa-ring"])
+@pytest.mark.parametrize("case", ["gqa", "mqa-ring", "zamba2-mha",
+                                  "gqa24-ragged"])
 def test_decode_plain_matches_pallas_interpret(case, dtype, ref):
     b, s, h, kv, d, window = DECODE_CASES[case]
     arrays = decode_inputs(5, b, s, h, kv, d)
@@ -228,6 +237,13 @@ CARD_FLASH = dict(FLASH_CASES, **{
     "path-glm4": (2, 32, 32, 32, 2, 128, True, None, 0),
     "ragged-long": (1, 333, 1000, 8, 2, 128, True, 200, 700),
     "one-row": (3, 1, 65, 4, 2, 64, True, None, 64),
+    "path-zamba2": (2, 32, 32, 32, 32, 64, True, None, 0),
+    # a partial last 128-row query tile and a partial kv tile
+    "partial-200": (1, 200, 200, 8, 2, 128, True, None, 0),
+    "partial-200-d64": (2, 200, 200, 4, 4, 64, False, None, 0),
+    # positions 200..263 see keys 101..263: the band crosses the kv
+    # tiles' edges at 128 and 256
+    "offset-band-edge": (1, 64, 300, 4, 2, 128, True, 100, 200),
 })
 CARD_DECODE = dict(DECODE_CASES, **{
     "path-starcoder2": (2, 4096, 24, 2, 128, 4096),
@@ -236,6 +252,10 @@ CARD_DECODE = dict(DECODE_CASES, **{
     "mqa-48": (2, 777, 48, 1, 128, None),
     "serving-fill": (2, 4096, 24, 2, 128, 4096),
     "40-chunks": (1, 5000, 8, 2, 64, None),
+    "path-zamba2": (2, 4096, 32, 32, 64, None),
+    # a ring whose visible positions (the last 64, holes aside) sit at
+    # slots 97..160: two chunks
+    "ring-straddle": (2, 512, 16, 2, 128, 64),
 })
 
 
@@ -262,9 +282,13 @@ def test_flash_kernel_matches_plain_on_card(case, dtype, cuda_device):
 @pytest.mark.parametrize("case", sorted(CARD_DECODE))
 def test_decode_kernel_matches_plain_on_card(case, dtype, cuda_device):
     b, s, h, kv, d, window = CARD_DECODE[case]
-    arrays = list(decode_inputs(10, b, s, h, kv, d, cur=max(s - 3, 0)))
-    if case == "serving-fill":            # slots 0..35 filled, as served
+    cur = 672 if case == "ring-straddle" else max(s - 3, 0)
+    arrays = list(decode_inputs(10, b, s, h, kv, d, cur=cur))
+    if case in ("serving-fill", "path-zamba2"):   # slots 0..35, as served
         arrays[3][:, 36:] = -1
+    if case == "ring-straddle":           # position p at slot p % s
+        pos = np.arange(cur - s + 1, cur + 1)
+        arrays[3][:, pos % s] = np.where(pos % 5 == 2, -1, pos)
     if b > 1:
         arrays[3][-1] = -1                # last sequence: nothing visible
     args = to_torch(arrays, dtype, cuda_device)
