@@ -11,8 +11,10 @@ Phases, each printing its own lines:
 2. build the five kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` each, all at once (timed, with ``ptxas``'s report);
 3. kernel B1 against its plain torch version on tie-heavy quantized
-   batches at the simulator's shapes and a ragged one, bitwise on every
-   output, then timed per launch with CUDA events;
+   batches (``-0.0`` and ``+0.0`` priorities among them) at the
+   simulator's shapes and a ragged one, bitwise on every output, then
+   timed per launch with CUDA events, and alone by the profiler, which
+   must see its one kernel, ``evict_place_kernel``;
 4. kernels B3 (flash attention) and B2 (decode attention) against their
    plain versions at the serving path's shapes (starcoder2-3b, glm4-9b
    and zamba2-1.2b's shared MHA block), long shapes and ragged ones, in
@@ -111,6 +113,8 @@ F32_OPS_S = 67e12
 BF16_OPS_S = 989e12
 
 KERNEL_SHAPES = ((2, 1024), (32, 256), (3, 1000))   # path, path, ragged
+#: The one ``__global__`` kernel each B1 launch runs.
+POOL_KERNELS = ["evict_place_kernel"]
 
 
 class SmokeError(RuntimeError):
@@ -139,8 +143,12 @@ def card_line() -> str:
 def tie_batch(rng, p: int, s: int):
     """Quantized tie-heavy evict-and-place inputs (priorities in {0..3},
     distinct seqs, whole-MB sizes); row 0 is all busy, row 1 (if any)
-    has a deficit <= 0."""
+    has a deficit <= 0, and every idle slot of row 2 (if any) has the
+    priority -0.0 or +0.0, at random, so that the row is ordered by seq
+    alone across the two zeros."""
     pri = rng.integers(0, 4, (p, s)).astype(np.float32)
+    if p > 2:
+        pri[2] = np.where(rng.random(s) < 0.5, -0.0, 0.0)
     seq = rng.permutation(np.arange(1.0, p * s + 1, dtype=np.float32)
                           ).reshape(p, s)
     size = rng.integers(1, 400, (p, s)).astype(np.float32)
@@ -186,30 +194,36 @@ def kernel_ms(fn, names, iters: int = 20) -> dict:
     """Device milliseconds per call of each ``__global__`` kernel whose
     name contains one of ``names``, from ``torch.profiler`` over ``iters``
     calls: the kernels' own run time, without the gaps between launches
-    that the CUDA-event time includes.  Fails when a name is not in the
-    profile, so a renamed kernel or a call that took another path cannot
-    drop out of the measurements unseen."""
+    that the CUDA-event time includes.  Each must run once a call.  Fails
+    when a name is not in the profile or ran more often than the calls,
+    so a renamed kernel, a second launch or a call that took another path
+    cannot drop out of the measurements unseen."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for attempt in range(2):
+    for attempt in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        out = {}
+        total, count = {}, {}
         for e in prof.key_averages():
             for n in names:
                 if n in e.key:
-                    out[n] = out.get(n, 0.0) + getattr(
-                        e, "self_device_time_total", 0.0) / 1e3 / iters
-        missing = [n for n in names if n not in out]
-        if not missing:
-            return out
-        # the first session of a process has come back without any kernel
-        # record (only the launch calls): measure once more before failing
-    check(False, f"kernels {missing} not in the profile (saw "
-          f"{sorted(e.key for e in prof.key_averages())})")
+                    total[n] = total.get(n, 0.0) + getattr(
+                        e, "self_device_time_total", 0.0)
+                    count[n] = count.get(n, 0) + e.count
+        check(all(c <= iters for c in count.values()),
+              f"kernels {count} over {iters} calls: want each once a call")
+        if len(count) == len(names):
+            # the mean over the launches recorded: the profiler may lose
+            # one launch's record, and has never added one
+            return {n: total[n] / 1e3 / count[n] for n in names}
+        # a session has come back without any kernel record (only the
+        # launch calls), as the first of a process and once mid-run:
+        # measure again, four sessions in all, before failing
+    check(False, f"kernels {[n for n in names if n not in count]} not in "
+          f"the profile (saw {sorted(e.key for e in prof.key_averages())})")
 
 
 def evict_place_bound_ms(p: int, s: int) -> tuple[float, str]:
@@ -252,12 +266,14 @@ def kernel_phase(dev) -> dict:
         call = call_ms(lambda: evict_place_cuda(*args), 300)
         plain_ms = device_ms(lambda: evict_place_plain(*args), 20)
         bound_ms, bound_by = evict_place_bound_ms(p, s)
+        kern = kernel_ms(lambda: evict_place_cuda(*args), POOL_KERNELS)
         rows.append(dict(shape=[p, s], max_abs_err=err, ms=ms,
-                         call_ms=call, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by))
+                         call_ms=call, kernel_ms=kern, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
         print(f"kernel pool_step.evict_place [{p},{s}]: bitwise == plain; "
               f"device {ms * 1e3:.2f} us/launch ({call * 1e3:.2f} us a "
-              f"call back to back), plain {plain_ms * 1e3:.2f} us, bound "
+              f"call back to back; the kernel itself {fmt_us(kern)}), "
+              f"plain {plain_ms * 1e3:.2f} us, bound "
               f"{bound_ms * 1e3:.4f} us ({bound_by})", flush=True)
     return {"rows": rows}
 
@@ -595,6 +611,15 @@ def wkv_bound_ms(shape, dtype) -> tuple[float, str]:
     return scan_bound_ms(nbytes, b * s * h * 3 * d * d, dtype)
 
 
+def wkv_f32_floor_ms(shape) -> float:
+    """The floor of B5's sequential form on the CUDA cores, whatever the
+    inputs' type: its 3 D^2 multiply-adds a step and head (as in
+    ``wkv_bound_ms``) over the f32 peak.  The kernel runs every step in
+    f32, so this, not the bytes, is the least it can take."""
+    b, s, h, _ = shape
+    return 2 * b * s * h * 3 * 64 * 64 / F32_OPS_S * 1e3
+
+
 def scan_phase(dev) -> dict:
     """B4 and B5 against their plain versions in f32 and bf16 at every
     shape; then, in bf16, timed beside the plain version and the bound."""
@@ -634,13 +659,19 @@ def scan_phase(dev) -> dict:
                 shape=name, dims=list(shape), max_abs_err=errs, ms=ms,
                 call_ms=call, kernel_ms=kern, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bound, bound_by=bound_by))
+            if kname == "wkv6":
+                out[kname][-1]["f32_floor_ms"] = wkv_f32_floor_ms(shape)
             print(f"kernel {kname} {name} {list(shape)}: == plain (max abs "
                   f"err f32 {errs['torch.float32']:.2e}, bf16 "
                   f"{errs['torch.bfloat16']:.2e}); bf16 device "
                   f"{ms * 1e3:.2f} us/launch ({call * 1e3:.2f} us a call "
                   f"back to back; the kernel itself {fmt_us(kern)}), plain "
                   f"{plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
-                  f"({bound_by}); no library call", flush=True)
+                  f"({bound_by})" + (
+                      f", f32 CUDA-core floor "
+                      f"{wkv_f32_floor_ms(shape) * 1e3:.2f} us"
+                      if kname == "wkv6" else "") + "; no library call",
+                  flush=True)
     return out
 
 
@@ -1241,9 +1272,8 @@ def main() -> int:
                     source="src/repro_torch/kernels/csrc/pool_step.cu",
                     replaces="src/repro/kernels/pool_step.py:43",
                     launches=path["launches"],
-                    # each wrapper launch runs these two __global__ kernels
-                    cuda_kernels=["rank_kernel", "reduce_kernel"],
-                    cuda_kernel_launches=2 * path["launches"],
+                    cuda_kernels=POOL_KERNELS,
+                    cuda_kernel_launches=path["launches"],
                     max_abs_err=max(r["max_abs_err"]
                                     for r in kernels["rows"]),
                     ms=main_row["ms"], plain_ms=main_row["plain_ms"],

@@ -12,10 +12,14 @@ empty.  On quantized traces (whole MB) this is bitwise equal to the
 sort composite ``repro_torch.core.pool._evict_place_lax``.
 
 * :func:`evict_place_cuda` launches the hand-written kernel
-  (``csrc/pool_step.cu``: a ranking pass over slot tiles, then a per-row
-  reduction) on a CUDA tensor and raises on anything else;
+  (``csrc/pool_step.cu``: one launch, a thread-block cluster per pool
+  row that ranks packed ``(pri, seq)`` keys and reduces the row through
+  distributed shared memory) on a CUDA tensor and raises on anything
+  else;
 * :func:`evict_place_plain` is the same counting formulation in plain
   torch over ``[P, S, S]``;
+* :func:`pack_keys_plain` mirrors the kernel's packed key in plain torch,
+  for the tests of its order;
 * the registered backend :func:`fused_evict_place` takes the kernel for
   CUDA tensors and the plain version for CPU tensors, and nothing else.
 """
@@ -28,8 +32,9 @@ import torch
 from ..core.pool import _first_true, register_step_backend
 from . import _build
 
-#: Slots one row may have: the kernel stages 12 B per slot in the 48 KB
-#: of dynamic shared memory a block gets without an opt-in.
+#: Slots one row may have: every block of a row's cluster stages 14 B a
+#: slot in shared memory (the packed key, the size and the slot number,
+#: 56 KB at this size), and slot numbers fit 15 bits.
 MAX_SLOTS = 4096
 #: Pool rows one launch may have (the grid's y extent).
 MAX_POOLS = 65535
@@ -47,6 +52,23 @@ def evict_place_plain(pri, seq, size, idle, valid, deficit):
     empty = ~(valid & ~evict)
     return (evict, torch.where(evict, size, 0.0).sum(-1),
             _first_true(empty).to(torch.int32), sz.sum(-1), empty.any(-1))
+
+
+def _monotone_bits(x):
+    """The f32 bits of ``x + 0.0`` (``-0.0`` becomes ``+0.0``) as int64,
+    flipped so that their unsigned order is the float order."""
+    u = (x.float() + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u ^ (1 << 31))
+
+
+def pack_keys_plain(pri, seq):
+    """The kernel's packed key in plain torch: the monotone bits of
+    ``pri`` in the high word and of ``seq`` in the low word, shifted by
+    2^63 so that int64's signed order is the kernel's unsigned one.  For
+    non-NaN inputs ``key_j < key_i`` iff ``(pri_j, seq_j) <lex (pri_i,
+    seq_i)`` under the float compare."""
+    return (_monotone_bits(pri) - (1 << 31)) * (1 << 32) \
+        + _monotone_bits(seq)
 
 
 def _check(name, t, dtype, shape, device):

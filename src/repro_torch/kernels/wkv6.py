@@ -30,6 +30,8 @@ from . import _build
 
 #: The head dim the kernel is built for (``D`` in the .cu).
 HEAD_DIM = 64
+#: Steps the kernel stages and reduces y over at a time (``TC`` in the .cu).
+CHUNK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BUILD = ("wkv6", _build.ATTENTION_FLAGS)
 
@@ -68,9 +70,9 @@ def _library():
     lib = _build.load(*BUILD)
     fn = lib.wkv6_launch
     if fn.argtypes is None:
-        if lib.wkv6_head_dim() != HEAD_DIM:
-            raise RuntimeError("HEAD_DIM differs between the wrapper and "
-                               "csrc/wkv6.cu")
+        if (lib.wkv6_head_dim(), lib.wkv6_chunk()) != (HEAD_DIM, CHUNK):
+            raise RuntimeError("HEAD_DIM or CHUNK differs between the "
+                               "wrapper and csrc/wkv6.cu")
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -11,12 +11,15 @@ also collects where JAX is absent (the GPU host), for the ``cuda`` tests.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro_torch.core.pool import _evict_place_lax as torch_lax
 from repro_torch.core.pool import get_step_backend
 from repro_torch.kernels.pool_step import (MAX_SLOTS, evict_place_cuda,
                                            evict_place_plain,
-                                           fused_evict_place)
+                                           fused_evict_place,
+                                           pack_keys_plain)
 
 OUTPUTS = ("evict", "freed", "ins", "avail", "empty")
 DTYPES = (torch.bool, torch.float32, torch.int32, torch.float32, torch.bool)
@@ -121,6 +124,28 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         evict_place_cuda(*targs)
 
 
+FLOATS = st.floats(width=32, allow_nan=False)
+PRIORITIES = st.one_of(st.sampled_from([-0.0, 0.0, float("inf"), 1.0]),
+                       FLOATS)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.tuples(PRIORITIES, FLOATS), min_size=1, max_size=24))
+def test_packed_key_order_is_the_lex_float_order(pairs):
+    """The kernel's packed key (mirrored by ``pack_keys_plain``) orders
+    any non-NaN (pri, seq) pairs as the float compare's lex order does,
+    ``-0.0`` equal to ``+0.0`` and infinities included: ``key_j < key_i``
+    iff ``(pri_j, seq_j) <lex (pri_i, seq_i)``."""
+    pri = torch.tensor([p for p, _ in pairs], dtype=torch.float32)
+    seq = torch.tensor([q for _, q in pairs], dtype=torch.float32)
+    key = pack_keys_plain(pri, seq)
+    pi, pj = pri[:, None], pri[None, :]
+    si, sj = seq[:, None], seq[None, :]
+    lex_less = (pj < pi) | ((pj == pi) & (sj < si))
+    assert torch.equal(key[None, :] < key[:, None], lex_less)
+    assert torch.equal(key[None, :] == key[:, None], (pj == pi) & (sj == si))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -164,3 +189,36 @@ def test_kernel_wrapper_checks(cuda_device):
                                  s=MAX_SLOTS + 1), cuda_device)
     with pytest.raises(ValueError, match="slots exceed"):
         evict_place_cuda(*wide)
+
+
+def signed_zero_batch(rng, p, s):
+    """Tie-heavy quantized rows whose zero priorities are ``-0.0`` or
+    ``+0.0`` at random, ``+inf`` on busy slots; with more than two rows,
+    row 0 is all busy and row 1 has a deficit <= 0."""
+    pri, seq, size, idle, valid, deficit = random_batch(
+        rng, p=p, s=s, busy_rows=min(1, p - 1),
+        nonpos_rows=max(0, min(1, p - 2)))
+    pri = np.where((pri == 0) & (rng.random((p, s)) < 0.5), -0.0, pri)
+    deficit = np.where(deficit > 0, rng.integers(1, 20 * s + 2, p),
+                       deficit).astype(np.float32)
+    return pri.astype(np.float32), seq, size, idle, valid, deficit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 65])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 256, 1000,
+                               1024, MAX_SLOTS])
+def test_kernel_matches_plain_at_every_cluster_size(p, s, cuda_device):
+    """Slot counts on both sides of the kernel's cluster sizes (a block
+    for every 64 slots, up to 16) and of its 4-slot vector loads: bitwise
+    against the plain version, one launch a call."""
+    rng = np.random.default_rng(1000 * p + s)
+    batch = signed_zero_batch(rng, p, s)
+    assert (np.signbit(batch[0]) & (batch[0] == 0)).any() or s < 8
+    args = to_torch(batch, cuda_device)
+    before = evict_place_cuda.launches
+    got = evict_place_cuda(*args)
+    torch.cuda.synchronize()
+    assert evict_place_cuda.launches == before + 1
+    assert_same(tuple(t.cpu() for t in evict_place_plain(*args)), got,
+                f"kernel vs plain [{p}, {s}]")

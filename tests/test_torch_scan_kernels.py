@@ -27,6 +27,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ssm_scan import (CHUNK, ssm_decode_step,
                                           ssm_scan_cuda, ssm_scan_plain)
 from repro_torch.kernels.ssm_scan import check_inputs as ssm_check
+from repro_torch.kernels.wkv6 import CHUNK as WKV_CHUNK
 from repro_torch.kernels.wkv6 import (wkv6_cuda, wkv6_decode_step,
                                       wkv6_plain)
 from repro_torch.kernels.wkv6 import check_inputs as wkv_check
@@ -336,6 +337,12 @@ CARD_WKV.update({
     "rwkv6-prefill": (2, 32, 64, 64, False),
     "rwkv6-decode": (2, 1, 64, 64, True),
     "ragged-chunks": (1, 77, 3, 64, True),
+    # the edges of the kernel's chunks and of its unrolled step loop
+    "chunk-minus-1": (1, WKV_CHUNK - 1, 3, 64, True),
+    "chunk": (2, WKV_CHUNK, 2, 64, True),
+    "chunk-plus-1": (1, WKV_CHUNK + 1, 2, 64, False),
+    "two-chunks-plus-1": (1, 2 * WKV_CHUNK + 1, 2, 64, True),
+    "one-step-no-state": (2, 1, 4, 64, False),
 })
 CARD_TOL = {torch.float32: CHUNKED_TOL, torch.bfloat16: BF16_TOL}
 
