@@ -17,7 +17,8 @@ Phases, each printing its own lines:
    must see its one kernel, ``evict_place_kernel``;
 4. kernels B3 (flash attention) and B2 (decode attention) against their
    plain versions at the serving path's shapes (starcoder2-3b, glm4-9b
-   and zamba2-1.2b's shared MHA block), long shapes and ragged ones, in
+   and zamba2-1.2b's shared MHA block), kimi-k2's (head dim 112, a
+   group of 8), long shapes and ragged ones, in
    bf16 (tolerance 2e-2) and f32 (2e-5), absolute and relative, the JAX
    reference's own ``TOL``; the profiler must see the tensor-core kernels
    (``flash_wgmma_kernel``, ``decode_mma_kernel``) run in bf16 and the
@@ -29,8 +30,10 @@ Phases, each printing its own lines:
    (and rwkv6's decode, S = 1), at 4,096 steps and at a ragged length
    with a nonzero initial state, in f32 (atol 5e-4, rtol 1e-3: the
    reference's own bound for its chunked kernel against its sequential
-   oracle) and bf16 (2e-2); then timed beside the plain version and the
-   bound (no single PyTorch call computes either function);
+   oracle) and bf16 (2e-2); the profiler must see B4's tensor-core kernel
+   (``ssm_scan_mma_kernel``) in bf16 and its CUDA-core one
+   (``ssm_scan_fma_kernel``) in f32; then timed beside the plain version
+   and the bound (no single PyTorch call computes either function);
 6. the simulator path: the first ``SIM_EVENTS`` (4,000) invocations of
    the README quickstart's trace, ``edge_trace(seed=0, duration_s=3600)``
    (11,215 invocations, 140 functions; stored as
@@ -304,6 +307,9 @@ FLASH_SHAPES = {
     "long-h32-w1024": (2, 4096, 4096, 32, 2, 128, True, 1024, 0),
     "ragged-offset": (2, 333, 1000, 24, 2, 128, True, 200, 700),
     "ragged-d64": (3, 77, 77, 8, 2, 64, True, None, 0),
+    # kimi-k2-1t-a32b's attention (H = 64 over KV = 8, D = 112) at a
+    # 32-token prefill
+    "kimi-d112": (2, 32, 32, 64, 8, 112, True, None, 0),
 }
 #: name: (B, S, H, KV, D, window, fill, cur).  "serving" fills slots
 #: 0..cur, as the serving path's cache is after a 32-token prefill and a
@@ -317,6 +323,7 @@ DECODE_SHAPES = {
     "ring-holes-h32-w1024": (2, 4096, 32, 2, 128, 1024, "ring-holes", 6000),
     "ragged-holes": (3, 1000, 24, 2, 128, None, "holes", 999),
     "ragged-d64": (2, 300, 12, 2, 64, 100, "holes", 250),
+    "kimi-d112": (2, 4096, 64, 8, 112, None, "serving", 35),
 }
 
 
@@ -528,6 +535,14 @@ def attention_phase(dev) -> dict:
 #: chunked kernel against its sequential oracle (tests/test_kernels.py),
 #: in bf16 its ``TOL``.
 SCAN_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+#: The ``__global__`` kernel each wrapper launches, by dtype: B4 in bf16 on
+#: the tensor cores (``mma.sync``), in f32 on the CUDA cores; B5 one
+#: kernel for both.
+SCAN_KERNELS = {
+    "ssm_scan": {torch.bfloat16: ["ssm_scan_mma_kernel"],
+                 torch.float32: ["ssm_scan_fma_kernel"]},
+    "wkv6": {torch.bfloat16: ["wkv6_kernel"], torch.float32: ["wkv6_kernel"]},
+}
 #: name: (B, S, H, P, N, h0).  "path-zamba2" is zamba2's serving prefill
 #: (32 tokens, max_batch 2, 64 SSM heads of P = N = 64); 1,000 steps is
 #: not a multiple of the kernel's 64-step chunk.
@@ -622,19 +637,20 @@ def wkv_f32_floor_ms(shape) -> float:
 
 def scan_phase(dev) -> dict:
     """B4 and B5 against their plain versions in f32 and bf16 at every
-    shape; then, in bf16, timed beside the plain version and the bound."""
+    shape, the profiler naming each dtype's kernel; then, in bf16, timed
+    beside the plain version and the bound."""
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
     from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
     out = {"ssm_scan": [], "wkv6": []}
     kernels = {"ssm_scan": (ssm_scan_cuda, ssm_scan_plain, ssm_case,
-                            SSM_SHAPES, ssm_bound_ms, "h0",
-                            "ssm_scan_kernel"),
+                            SSM_SHAPES, ssm_bound_ms, "h0"),
                "wkv6": (wkv6_cuda, wkv6_plain, wkv_case, WKV_SHAPES,
-                        wkv_bound_ms, "state", "wkv6_kernel")}
-    for kname, (cuda, plain, case, shapes, bound_fn, init, cu_name) in \
+                        wkv_bound_ms, "state")}
+    for kname, (cuda, plain, case, shapes, bound_fn, init) in \
             kernels.items():
         for name, shape in shapes.items():
-            errs = {}
+            long = shape[1] >= 1000
+            errs, f32_kern = {}, {}
             for dtype in (torch.float32, torch.bfloat16):
                 args, s0 = case(shape, dtype, dev, shape[1] + 7)
                 got = cuda(*args, **{init: s0})
@@ -644,7 +660,10 @@ def scan_phase(dev) -> dict:
                     close_check(g, w, dtype, f"{kname} {name} {dtype} {o}",
                                 SCAN_TOL[dtype])
                     for o, g, w in zip(("y", "state"), got, want))
-            long = shape[1] >= 1000
+                if dtype == torch.float32:      # the CUDA-core kernel ran
+                    f32_kern = kernel_ms(
+                        lambda: cuda(*args, **{init: s0}),
+                        SCAN_KERNELS[kname][dtype], 2 if long else 5)
             iters = 10 if long else 200
 
             def run():
@@ -654,24 +673,26 @@ def scan_phase(dev) -> dict:
             plain_ms = device_ms(lambda: plain(*args, **{init: s0}),
                                  2 if long else 20)
             bound, bound_by = bound_fn(shape, torch.bfloat16)
-            kern = kernel_ms(run, [cu_name], 5 if long else 20)
-            out[kname].append(dict(
-                shape=name, dims=list(shape), max_abs_err=errs, ms=ms,
-                call_ms=call, kernel_ms=kern, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bound, bound_by=bound_by))
+            kern = kernel_ms(run, SCAN_KERNELS[kname][torch.bfloat16],
+                             5 if long else 20)
+            row = dict(shape=name, dims=list(shape), max_abs_err=errs,
+                       ms=ms, call_ms=call, kernel_ms=kern,
+                       f32_kernel_ms=f32_kern, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bound, bound_by=bound_by)
+            extra = ""
             if kname == "wkv6":
-                out[kname][-1]["f32_floor_ms"] = wkv_f32_floor_ms(shape)
+                row["f32_floor_ms"] = wkv_f32_floor_ms(shape)
+                extra = (f", f32 CUDA-core floor "
+                         f"{row['f32_floor_ms'] * 1e3:.2f} us")
+            out[kname].append(row)
             print(f"kernel {kname} {name} {list(shape)}: == plain (max abs "
                   f"err f32 {errs['torch.float32']:.2e}, bf16 "
                   f"{errs['torch.bfloat16']:.2e}); bf16 device "
                   f"{ms * 1e3:.2f} us/launch ({call * 1e3:.2f} us a call "
                   f"back to back; the kernel itself {fmt_us(kern)}), plain "
                   f"{plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
-                  f"({bound_by})" + (
-                      f", f32 CUDA-core floor "
-                      f"{wkv_f32_floor_ms(shape) * 1e3:.2f} us"
-                      if kname == "wkv6" else "") + "; no library call",
-                  flush=True)
+                  f"({bound_by}){extra}; f32 on {fmt_us(f32_kern)}; no "
+                  "library call", flush=True)
     return out
 
 
@@ -1298,13 +1319,13 @@ def main() -> int:
                    "ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                    "src/repro/kernels/ssm_scan.py:29", scans["ssm_scan"],
                    "path-zamba2", serving["launches"]["ssm_scan"],
-                   ["ssm_scan_kernel"]),
+                   SCAN_KERNELS["ssm_scan"][torch.bfloat16]),
                # most of B5's launches are decode steps (S = 1)
                kernel_entry(
                    "wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
                    "src/repro/kernels/wkv6.py:24", scans["wkv6"],
                    "path-rwkv6-decode", serving["launches"]["wkv6"],
-                   ["wkv6_kernel"])]
+                   SCAN_KERNELS["wkv6"][torch.bfloat16])]
     print("kernels: " + json.dumps([e["name"] for e in entries]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({

@@ -37,9 +37,11 @@
 // Softmax: invisible slots at NEG_INF, each row's max and sum reduced
 // over a quad by shuffles and across the four warps in shared memory;
 // P is rounded to bf16 (as the oracle's p.astype(v.dtype)) into shared
-// memory.  Values: each warp takes D / 4 columns, acc [16 MT x D / 4] =
-// P V over the chunk's 16-slot steps (P by ldmatrix, V by ldmatrix.trans),
-// so no warp's accumulator grows with G and none is summed across warps.
+// memory.  Values: each warp takes up to ceil(D / 64) 16-column groups
+// (D = 112, kimi-k2's, has 7 groups: the last warp takes one), acc
+// [16 MT x 32] = P V over the chunk's 16-slot steps (P by ldmatrix, V by
+// ldmatrix.trans), so no warp's accumulator grows with G and none is
+// summed across warps.
 //
 // f32 (the tests' dtype, held at 2e-5, which TF32 tensor cores cannot
 // meet): decode_fma_kernel, the same staging, then scores a thread a slot
@@ -48,7 +50,7 @@
 // Inputs are contiguous q [B, H, D], k/v [B, S, KV, D] in bf16 or f32,
 // slot_pos i32 [B, S], cur i32 [B]; output [B, H, D] in q's dtype; q, k
 // and v 16-byte aligned.  Scratch: m, l f32 [B, KV, n_chunks, G] and acc
-// f32 [B, KV, n_chunks, G, D].  D is 64 or 128; S up to 6,144 chunks;
+// f32 [B, KV, n_chunks, G, D].  D is 64, 112 or 128; S up to 6,144 chunks;
 // G = H / KV up to 64.
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -129,9 +131,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int DP = D + 8;                 // row pitches (bf16), padded so
   constexpr int PP = CHUNK + 8;             // ldmatrix rows hit all banks
   constexpr int NW = NT / 32;
-  constexpr int WN = D / NW;                // value columns a warp
-  constexpr int NJ = WN / 8;                // n8 tiles a warp
-  static_assert(CHUNK == NW * 32 && NJ % 2 == 0, "tiling");
+  constexpr int NG = D / 16;                // 16-column groups of values
+  constexpr int GPW = (NG + NW - 1) / NW;   // groups a warp (the last
+  constexpr int NJ = 2 * GPW;               //   warp's may run out); n8
+  static_assert(CHUNK == NW * 32 && D % 16 == 0, "tiling");   // tiles
   const int G = H / KV;
   const int chunk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int n_chunks = gridDim.x;
@@ -300,9 +303,11 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     part_l[part * G + r] = l;
   }
 
-  // weighted values: this warp's columns n0 .. n0 + WN - 1, over the
-  // chunk's 16-slot steps that hold a visible slot
-  const int n0 = warp * WN;
+  // weighted values: this warp's groups warp GPW .. + GPW - 1 (those
+  // below NG: columns n0 .. n0 + 16 GPW - 1, fewer in the last warp at
+  // D = 112), over the chunk's 16-slot steps that hold a visible slot
+  const int n0 = warp * GPW * 16;
+  const int my_groups = min(GPW, NG - warp * GPW);   // warp-uniform
   float acc[MT][NJ][4];
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
@@ -316,6 +321,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     uint32_t vb4[NJ / 2][4];   // b0, b1 of tiles (2 jp, 2 jp + 1)
 #pragma unroll
     for (int jp = 0; jp < NJ / 2; ++jp) {
+      if (jp >= my_groups) break;
       const int r = 16 * kk + (lane / 8 % 2) * 8 + lane % 8;
       ldsm_x4_trans(vs_a + 2 * (r * DP + n0 + 8 * (2 * jp + lane / 16)),
                     vb4[jp]);
@@ -326,9 +332,11 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       ldsm_x4(ps_a + 2 * ((16 * mi + lane % 16) * PP + 16 * kk +
                           (lane / 16) * 8), a);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < NJ; ++j) {
+        if (j / 2 >= my_groups) break;
         mma_bf16(acc[mi][j], a, vb4[j / 2][2 * (j % 2)],
                  vb4[j / 2][2 * (j % 2) + 1]);
+      }
     }
   }
 #pragma unroll
@@ -339,9 +347,11 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       if (r >= G) continue;
       float* out = part_acc + (part * G + r) * D + n0 + 2 * t;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < NJ; ++j) {
+        if (j / 2 >= my_groups) break;
         *reinterpret_cast<float2*>(out + 8 * j) =
             make_float2(acc[mi][j][2 * hh], acc[mi][j][2 * hh + 1]);
+      }
     }
 }
 
@@ -486,8 +496,10 @@ decode_fma_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   }
   __syncthreads();
 
-  // weighted values: thread column d, heads tid / D + TPD * i
+  // weighted values: thread column d, heads tid / D + TPD * i; at D = 112
+  // the threads from TPD D on have no column
   const int d = tid % D, h0 = tid / D;
+  if (tid >= TPD * D) return;
   for (int gb = 0; gb < G; gb += HG * TPD) {
     float acc[HG];
 #pragma unroll
@@ -509,8 +521,15 @@ decode_fma_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   }
 }
 
+// threads of a combine block: a column each, in whole warps (D = 112
+// leaves the last 16 without a column; they join the reductions)
+template <int D>
+__host__ __device__ constexpr int combine_threads() {
+  return (D + 31) / 32 * 32;
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(D)
+__global__ void __launch_bounds__(combine_threads<D>())
 decode_combine_kernel(const T* __restrict__ vc,
                       const float* __restrict__ part_m,
                       const float* __restrict__ part_l,
@@ -519,17 +538,19 @@ decode_combine_kernel(const T* __restrict__ vc,
   // a block a (head, sequence), a thread a column; the chunks' maxima are
   // loaded all at once into shared memory, and only the chunks that saw a
   // slot are read for their sums
-  constexpr int NW = D / 32;
+  constexpr int NTH = combine_threads<D>();
+  constexpr int NW = NTH / 32;
   extern __shared__ float wts[];                     // [n_chunks]
   int* list = reinterpret_cast<int*>(wts + n_chunks);  // [n_chunks]
   __shared__ float red[NW];
   __shared__ int count;
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int lane = d % 32, warp = d / 32;
+  const bool col = d < D;            // this thread owns column d
   const int G = H / KV, kvh = h / G, g = h % G;
   const size_t base = ((size_t)b * KV + kvh) * n_chunks;
   float m = NEG_INF;
-  for (int i = d; i < n_chunks; i += D) {
+  for (int i = d; i < n_chunks; i += NTH) {
     const float mi = part_m[(base + i) * G + g];
     wts[i] = mi;
     m = fmaxf(m, mi);
@@ -547,13 +568,14 @@ decode_combine_kernel(const T* __restrict__ vc,
   if (m <= NEG_INF) {
     // no visible slot: the reference's softmax over all-NEG_INF scores is
     // uniform, so the output is the mean of every V row
+    if (!col) return;
     const size_t row = (size_t)KV * D;
     const T* vb = vc + (size_t)b * S * row + (size_t)kvh * D + d;
     float sum = 0.f;
     for (int s = 0; s < S; ++s) sum += to_f32(vb[(size_t)s * row]);
     out = sum / (float)S;
   } else {
-    for (int i = d; i < n_chunks; i += D) {
+    for (int i = d; i < n_chunks; i += NTH) {
       const float mi = wts[i];
       wts[i] = mi <= NEG_INF ? 0.f : expf(mi - m);   // empty chunk: 0
     }
@@ -570,6 +592,7 @@ decode_combine_kernel(const T* __restrict__ vc,
       if (lane == 0) count = n;
     }
     __syncthreads();
+    if (!col) return;
     // eight chunks' loads in flight before their sums: a load a chunk in
     // turn left the loop waiting on each (~6 us over 32 chunks)
     float l = 0.f, acc = 0.f;
@@ -671,7 +694,7 @@ int launch(const void* q, const void* k, const void* v, const int* sp,
     }
   }
   if (rc != 0) return rc;
-  decode_combine_kernel<T, D><<<dim3(H, B), D,
+  decode_combine_kernel<T, D><<<dim3(H, B), combine_threads<D>(),
                                  2 * n_chunks * sizeof(float), stream>>>(
       static_cast<const T*>(v), pm, pl, pa, static_cast<T*>(o), S, H, KV,
       n_chunks);
@@ -696,6 +719,9 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, slot_pos, cur, part_m, part_l,
                              part_acc, o, B, S, H, KV, scale, window, st);
+  if (dtype == 0 && D == 112)
+    return launch<float, 112>(q, k, v, slot_pos, cur, part_m, part_l,
+                              part_acc, o, B, S, H, KV, scale, window, st);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, slot_pos, cur, part_m, part_l,
                               part_acc, o, B, S, H, KV, scale, window, st);
@@ -703,6 +729,10 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
     return launch<__nv_bfloat16, 64>(q, k, v, slot_pos, cur, part_m, part_l,
                                      part_acc, o, B, S, H, KV, scale, window,
                                      st);
+  if (dtype == 1 && D == 112)
+    return launch<__nv_bfloat16, 112>(q, k, v, slot_pos, cur, part_m,
+                                      part_l, part_acc, o, B, S, H, KV,
+                                      scale, window, st);
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, slot_pos, cur, part_m,
                                       part_l, part_acc, o, B, S, H, KV,

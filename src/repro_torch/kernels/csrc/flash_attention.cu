@@ -63,7 +63,7 @@
 //
 // Inputs are contiguous, 16-byte aligned q [B, Sq, H, D], k/v
 // [B, Skv, KV, D] in bf16 or f32; output [B, Sq, H, D] in q's dtype.  D is
-// 64 or 128.  Any Sq and Skv: ragged tiles are masked.  The wrapper
+// 64, 112 or 128.  Any Sq and Skv: ragged tiles are masked.  The wrapper
 // guarantees every query row sees at least one key (so skipping masked
 // tiles is exact).
 #include <cuda.h>
@@ -86,6 +86,15 @@ constexpr int STAGES = 2;        // K/V tiles in flight
 constexpr int CONSUMERS = 256;   // threads of the two consumer warpgroups
 constexpr int WG_THREADS = CONSUMERS + 32;   // and one producer warp
 constexpr int BOX_COLS = 64;     // 128 bytes of bf16: one swizzle row
+
+// The head dim of the shared-memory tiles: whole 64-column swizzle boxes.
+// At D = 112 (kimi-k2) the second box's last 16 columns lie past the
+// tensor map's row and TMA fills them with zeros, which add nothing to
+// Q K^T; P V runs at n = 128 and its last 16 columns are not stored.
+template <int D>
+__host__ __device__ constexpr int tile_cols() {
+  return (D + BOX_COLS - 1) / BOX_COLS * BOX_COLS;
+}
 
 template <int D>
 constexpr int wgmma_smem_bytes() {
@@ -311,7 +320,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // O += P V: V's [WKV, D] tile at `v` is MN-major for the B operand
 // (transposed); 16 kv rows a step, the two 64-column boxes of D = 128 LBO
-// apart, 8-row groups SBO apart
+// apart, 8-row groups SBO apart.  D is the tile's (whole boxes).
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
                                          const uint32_t (&pa)[WKV / 16][4],
@@ -327,8 +336,9 @@ __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
 }
 
 // S = Q K^T over D / 16 steps of 16 columns, Q's 64 rows at `q` in a
-// [WQ, D] tile, K's [WKV, D] tile at `k`; a step inside a 128-byte swizzle
-// row advances the descriptors by 32 bytes
+// [WQ, DT] tile, K's [WKV, DT] tile at `k` (DT = tile_cols<D>(): the
+// columns from D on are zeros and no step reads them); a step inside a
+// 128-byte swizzle row advances the descriptors by 32 bytes
 template <int D>
 __device__ __forceinline__ void issue_s(float (&sacc)[WKV / 2], uint32_t q,
                                         uint32_t k) {
@@ -352,8 +362,9 @@ __device__ __forceinline__ void flash_consumer(
     uint32_t empty_bar, __nv_bfloat16* __restrict__ o, int q0, int h, int b,
     int k_first, int n_tiles, int Sq, int Skv, int H, float scale_log2,
     int causal, int window, int q_offset) {
-  constexpr int KV_BYTES = WKV * D * 2;  // one K or V tile
-  constexpr int NO = D / 2;              // output accumulators a thread
+  constexpr int DT = tile_cols<D>();
+  constexpr int KV_BYTES = WKV * DT * 2; // one K or V tile
+  constexpr int NO = DT / 2;             // output accumulators a thread
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -462,7 +473,7 @@ __device__ __forceinline__ void flash_consumer(
       // O += P V
       fence_regs(oacc);
       wgmma_fence();
-      issue_pv<D>(oacc, pa, vs + s * KV_BYTES);
+      issue_pv<DT>(oacc, pa, vs + s * KV_BYTES);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(oacc);
@@ -480,7 +491,7 @@ __device__ __forceinline__ void flash_consumer(
   __nv_bfloat16* o0 = o + ((size_t)b * Sq + row0) * q_row + (size_t)h * D;
   __nv_bfloat16* o1 = o0 + 8 * q_row;
 #pragma unroll
-  for (int k = 0; k < NO / 4; ++k) {
+  for (int k = 0; k < D / 8; ++k) {   // columns 8k + 2t < D: none past D
     const int c = 8 * k + 2 * t;
     if (row0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(o0 + c) =
@@ -499,9 +510,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
                    int KV, float scale_log2, int causal, int window,
                    int q_offset) {
-  constexpr int NSUB = D / BOX_COLS;     // 64-column boxes a row block
-  constexpr int Q_BYTES = WQ * D * 2;
-  constexpr int KV_BYTES = WKV * D * 2;  // one K or V tile
+  constexpr int DT = tile_cols<D>();
+  constexpr int NSUB = DT / BOX_COLS;    // 64-column boxes a row block
+  constexpr int Q_BYTES = WQ * DT * 2;   // TMA counts the zeros too
+  constexpr int KV_BYTES = WKV * DT * 2; // one K or V tile
   extern __shared__ uint8_t smem_raw[];
   // tiles at 1,024-byte boundaries: the swizzle is a function of the
   // address, and TMA and wgmma must agree on it
@@ -620,15 +632,15 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // its first store, so their latencies overlap
   constexpr int VEC = 16 / sizeof(T);
   constexpr int NVR = D / VEC;                 // vectors a row
-  constexpr int QIT = BQ * NVR / NT;           // Q vectors a thread
-  constexpr int KIT = BKV * NVR / NT;          // K (and V) vectors a thread
-  static_assert(QIT * NT == BQ * NVR && KIT * NT == BKV * NVR, "tiling");
+  // vectors a thread; the last round is partial at D = 112
+  constexpr int QIT = (BQ * NVR + NT - 1) / NT;
+  constexpr int KIT = (BKV * NVR + NT - 1) / NT;
   {
     float x[QIT][VEC];
 #pragma unroll
     for (int it = 0; it < QIT; ++it) {
       const int i = tid + it * NT, r = i / NVR, c = (i % NVR) * VEC;
-      if (q0 + r < Sq)
+      if (r < BQ && q0 + r < Sq)
         load16(qb + (size_t)(q0 + r) * q_row + c, x[it]);
       else
 #pragma unroll
@@ -637,8 +649,9 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int it = 0; it < QIT; ++it) {
       const int i = tid + it * NT, r = i / NVR, c = (i % NVR) * VEC;
+      if (r < BQ)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) Qs[r * DP + c + e] = x[it][e] * scale;
+        for (int e = 0; e < VEC; ++e) Qs[r * DP + c + e] = x[it][e] * scale;
     }
   }
   if (tid < BQ) {
@@ -664,7 +677,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int it = 0; it < KIT; ++it) {
         const int i = tid + it * NT, r = i / NVR, c = (i % NVR) * VEC;
-        if (k0 + r < Skv) {
+        if (r < BKV && k0 + r < Skv) {
           load16(kb + (size_t)(k0 + r) * kv_row + c, xk[it]);
           load16(vb + (size_t)(k0 + r) * kv_row + c, xv[it]);
         } else {
@@ -676,6 +689,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int it = 0; it < KIT; ++it) {
         const int i = tid + it * NT, r = i / NVR, c = (i % NVR) * VEC;
+        if (r >= BKV) continue;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
           Ks[r * DP + c + e] = xk[it][e];
@@ -812,7 +826,9 @@ EncodeTiled encode_tiled() {
 }
 
 // a bf16 [B, S, heads, D] tensor as a 4-D map of [rows, 64] boxes (one
-// head, one sequence) with the 128-byte swizzle; reads past S are zeros
+// head, one sequence) with the 128-byte swizzle; reads past S, and past D
+// in a box that starts below it (D = 112), are zeros.  TMA wants row
+// pitches in multiples of 16 bytes: 2 D is 128, 224 or 256.
 int tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
                int D, int rows) {
   EncodeTiled fn = encode_tiled();
@@ -841,7 +857,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (rc == 0) rc = tensor_map(&kmap, k, B, Skv, KV, D, WKV);
   if (rc == 0) rc = tensor_map(&vmap, v, B, Skv, KV, D, WKV);
   if (rc != 0) return rc;
-  constexpr int smem = wgmma_smem_bytes<D>();
+  constexpr int smem = wgmma_smem_bytes<tile_cols<D>()>();
   auto kern = flash_wgmma_kernel<D>;
   static bool smem_set = false;      // once: the call costs host time
   if (!smem_set) {
@@ -895,12 +911,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0 && D == 64)
     return launch_fma<64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
                           window, q_offset, st);
+  if (dtype == 0 && D == 112)
+    return launch_fma<112>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                           window, q_offset, st);
   if (dtype == 0 && D == 128)
     return launch_fma<128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
                            window, q_offset, st);
   if (dtype == 1 && D == 64)
     return launch_wgmma<64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
                             window, q_offset, st);
+  if (dtype == 1 && D == 112)
+    return launch_wgmma<112>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                             window, q_offset, st);
   if (dtype == 1 && D == 128)
     return launch_wgmma<128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
                              window, q_offset, st);

@@ -27,7 +27,8 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+#: Head dims the kernel is built for: 64, kimi-k2's 112, and 128.
+HEAD_DIMS = (64, 112, 128)
 #: Cache slots one block of the split kernel reads (``CHUNK`` in the .cu).
 CHUNK = 128
 #: Query heads a kv head may serve (the split kernel's shared memory).
@@ -130,8 +131,8 @@ def decode_attention_cuda(q, k_cache, v_cache, slot_pos, cur_pos, *,
 
     Same contract as :func:`decode_attention_plain`.  Raises on tensors
     that are not on a CUDA device, not contiguous, of other dtypes than
-    float32/bfloat16 (one for q and the cache), a head dim other than 64
-    or 128, and when the build or the launch fails.  Counts its launches
+    float32/bfloat16 (one for q and the cache), a head dim outside
+    :data:`HEAD_DIMS`, and when the build or the launch fails.  Counts its launches
     (each a split and a combine kernel) in
     ``decode_attention_cuda.launches``."""
     if q.device.type != "cuda":

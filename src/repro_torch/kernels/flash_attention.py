@@ -27,8 +27,9 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-#: Head dims the kernel is built for.
-HEAD_DIMS = (64, 128)
+#: Head dims the kernel is built for: 64 and 128, and kimi-k2's 112 (its
+#: bf16 tiles are zero-padded to 128 columns inside the kernel).
+HEAD_DIMS = (64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BUILD = ("flash_attention", _build.ATTENTION_FLAGS)
 
@@ -118,7 +119,8 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, scale=None,
 
     Same contract as :func:`flash_attention_plain`.  Raises on tensors
     that are not on a CUDA device, not contiguous, of other dtypes than
-    float32/bfloat16 (one for all three), a head dim other than 64 or 128,
+    float32/bfloat16 (one for all three), a head dim outside
+    :data:`HEAD_DIMS`,
     a query row that would see no key, and when the build, a tensor map
     (bf16) or the launch fails.  Counts its launches in
     ``flash_attention_cuda.launches``."""

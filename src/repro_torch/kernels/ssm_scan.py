@@ -9,10 +9,16 @@ x ``[B, S, H, P]``, dt ``[B, S, H]`` f32, a ``[H]`` f32 (negative), B/C
 f32.
 
 * :func:`ssm_scan_cuda` launches ``csrc/ssm_scan.cu`` (chunks of
-  :data:`CHUNK` steps in the SSD matrix form) on a CUDA tensor and raises
-  on anything else;
+  :data:`CHUNK` steps in the SSD matrix form, :data:`BLOCK_COLS` columns
+  of P a block) on a CUDA tensor and raises on anything else: bf16 runs
+  ``ssm_scan_mma_kernel`` (``mma.sync`` on the tensor cores), f32
+  ``ssm_scan_fma_kernel`` (f32 FMAs on the CUDA cores);
 * :func:`ssm_scan_plain` is the oracle in plain torch: the sequential
   recurrence in f32, on any device;
+* :func:`ssm_scan_chunked_plain` mirrors the kernels' arithmetic in plain
+  torch (the same chunks and, for bf16 inputs, the same hi + lo bf16
+  splits), so that the CPU tests can show the rounding choice against the
+  reference; nothing on the main path calls it;
 * :func:`ssm_decode_step` is the single-token update, plain torch: the
   reference has no kernel for it (``repro/kernels/ops.py``: "no kernel
   warranted").
@@ -30,9 +36,12 @@ from . import _build
 
 #: Steps a chunk of the kernel (``T`` in the .cu).
 CHUNK = 64
-#: (N, P) the kernel is built for: zamba2's (64, 64), and the reference's
-#: test shapes (32, 64) and (16, 32) (the last is also reduced zamba2's).
-STATE_SHAPES = ((64, 64), (32, 64), (16, 32))
+#: Columns of P a block takes (``PB`` in the .cu).
+BLOCK_COLS = 32
+#: (N, P) the kernel is built for: zamba2's (64, 64), Mamba2's own
+#: (128, 64), and the reference's test shapes (32, 64) and (16, 32) (the
+#: last is also reduced zamba2's).
+STATE_SHAPES = ((64, 64), (128, 64), (32, 64), (16, 32))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BUILD = ("ssm_scan", _build.ATTENTION_FLAGS)
 
@@ -52,6 +61,45 @@ def ssm_scan_plain(x, dt, a, b, c, *, h0=None):
     return torch.stack(ys, dim=1).to(x.dtype), h
 
 
+def _hi_lo(t):
+    """f32 ``t`` as the sum of its two bf16 parts, hi = bf16(t) and lo =
+    bf16(t - hi), as the bf16 kernel feeds f32 operands to the tensor
+    cores."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+def ssm_scan_chunked_plain(x, dt, a, b, c, *, h0=None, chunk=CHUNK):
+    """The kernels' arithmetic in plain torch: chunks of ``chunk`` steps in
+    the SSD matrix form, the mask before the exponential, dt folded into
+    G and w; for bf16 inputs G, h (in C h) and w o X pass through
+    :func:`_hi_lo` before their products, as in ``ssm_scan_mma_kernel``.
+    Same contract as :func:`ssm_scan_plain`; the sums run in another
+    order than the kernels'."""
+    bsz, s, hh, p = x.shape
+    n = b.shape[-1]
+    two = _hi_lo if x.dtype == torch.bfloat16 else (lambda t: t)
+    xf, bf, cf = (t.float().transpose(1, 2) for t in (x, b, c))
+    dtf = dt.float().transpose(1, 2)                      # [B, H, S]
+    h = torch.zeros(bsz, hh, n, p, dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    ys = []
+    for t0 in range(0, s, chunk):
+        xc, bc, cc = (t[:, :, t0:t0 + chunk] for t in (xf, bf, cf))
+        dc = dtf[:, :, t0:t0 + chunk]
+        sc = torch.cumsum(a.float()[None, :, None] * dc, dim=-1)
+        tc = sc.shape[-1]
+        lower = torch.ones(tc, tc, dtype=torch.bool, device=x.device).tril()
+        diff = torch.where(lower, sc[..., :, None] - sc[..., None, :], 0.0)
+        g = torch.where(lower, (cc @ bc.transpose(-1, -2)) * torch.exp(diff)
+                        * dc[..., None, :], 0.0)
+        ys.append(two(g) @ xc + torch.exp(sc)[..., None] * (cc @ two(h)))
+        w = torch.exp(sc[..., -1:] - sc) * dc
+        h = torch.exp(sc[..., -1])[..., None, None] * h + \
+            bc.transpose(-1, -2) @ two(w[..., None] * xc)
+    return torch.cat(ys, dim=2).transpose(1, 2).to(x.dtype), h
+
+
 def ssm_decode_step(x, dt, a, b, c, h):
     """Single-token SSM update (``repro.kernels.ref.ssm_decode_step``).
     x [B,H,P], dt [B,H] f32, b/c [B,H,N], h [B,H,N,P] -> (y [B,H,P] in x's
@@ -67,9 +115,10 @@ def _library():
     lib = _build.load(*BUILD)
     fn = lib.ssm_scan_launch
     if fn.argtypes is None:
-        if lib.ssm_scan_chunk() != CHUNK:
-            raise RuntimeError("CHUNK differs between the wrapper and "
-                               "csrc/ssm_scan.cu")
+        if (lib.ssm_scan_chunk(), lib.ssm_scan_block_cols()) != \
+                (CHUNK, BLOCK_COLS):
+            raise RuntimeError("CHUNK or BLOCK_COLS differs between the "
+                               "wrapper and csrc/ssm_scan.cu")
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -110,16 +159,20 @@ def check_inputs(x, dt, a, b, c, h0) -> None:
     for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16 or b.data_ptr() % 16 or c.data_ptr() % 16:
+        raise ValueError("the kernel copies x, b and c in 16-byte vectors: "
+                         "they must be 16-byte aligned")
 
 
 def ssm_scan_cuda(x, dt, a, b, c, *, h0=None):
     """Launch ``csrc/ssm_scan.cu`` on PyTorch's current stream.
 
     Same contract as :func:`ssm_scan_plain`.  Raises on tensors that are
-    not on a CUDA device or not contiguous, on x/b/c of other dtypes than
-    float32/bfloat16 (one for all three), dt/a/h0 other than float32, an
-    (N, P) outside :data:`STATE_SHAPES`, and when the build or the launch
-    fails.  Counts its launches in ``ssm_scan_cuda.launches``."""
+    not on a CUDA device, not contiguous or (x, b, c) not 16-byte aligned,
+    on x/b/c of other dtypes than float32/bfloat16 (one for all three),
+    dt/a/h0 other than float32, an (N, P) outside :data:`STATE_SHAPES`,
+    and when the build or the launch fails.  Counts its launches in
+    ``ssm_scan_cuda.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan_cuda needs CUDA tensors, got {x.device}")
     check_inputs(x, dt, a, b, c, h0)
@@ -134,8 +187,9 @@ def ssm_scan_cuda(x, dt, a, b, c, *, h0=None):
     rc = launch(*ptrs, bsz, s, hh, n, p, _DTYPES[x.dtype],
                 ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {rc} "
-                           f"at x {tuple(x.shape)}, N={n}, {x.dtype}")
+        what = "not built for it" if rc == -1 else f"CUDA error {rc}"
+        raise RuntimeError(f"ssm_scan kernel launch failed: {what} at x "
+                           f"{tuple(x.shape)}, N={n}, {x.dtype}")
     ssm_scan_cuda.launches += 1
     return y, h_out
 

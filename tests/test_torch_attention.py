@@ -5,7 +5,8 @@ On the CPU the port's plain versions are held against the reference's
 oracles (``repro.kernels.ref``) and its Pallas kernels in interpret mode,
 as ``tests/test_kernels.py`` runs them, at a few of its shapes (MQA, GQA,
 zamba2's MHA with D = 64 and G = 1, a group of 24 heads, a window,
-ragged lengths, holes in the cache).  The tolerance is the reference's
+ragged lengths, holes in the cache) and at kimi-k2's head dim of 112
+with its group of 8.  The tolerance is the reference's
 own ``TOL``: 2e-5 in f32, 2e-2 in bf16 (absolute and relative).  On the
 card (marker ``cuda``) each CUDA kernel is held against its plain
 version at the same tolerances: in bf16 that is the tensor-core kernel
@@ -94,6 +95,9 @@ FLASH_CASES = {   # name: (b, sq, skv, h, kv, d, causal, window, q_offset)
     "ragged-offset": (2, 37, 70, 6, 2, 64, True, 40, 33),
     "zamba2-mha": (2, 96, 96, 4, 4, 64, True, None, 0),
     "gqa24-ragged": (1, 100, 100, 24, 1, 128, True, None, 0),
+    # kimi-k2-1t-a32b: D = 112, G = 8
+    "kimi-d112": (1, 128, 128, 16, 2, 112, True, None, 0),
+    "kimi-d112-ragged": (2, 37, 90, 8, 1, 112, True, 30, 50),
 }
 DECODE_CASES = {  # name: (b, s, h, kv, d, window)
     "gqa": (2, 1024, 8, 2, 64, None),
@@ -101,6 +105,8 @@ DECODE_CASES = {  # name: (b, s, h, kv, d, window)
     "ragged-window": (3, 300, 12, 2, 64, 100),
     "zamba2-mha": (2, 512, 4, 4, 64, None),
     "gqa24-ragged": (1, 200, 24, 1, 128, None),
+    "kimi-d112": (2, 512, 16, 2, 112, None),
+    "kimi-d112-window": (1, 300, 8, 1, 112, 100),
 }
 
 
@@ -120,7 +126,7 @@ def test_flash_plain_matches_reference_oracle(case, dtype, ref):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["mqa", "gqa-window", "zamba2-mha",
-                                  "gqa24-ragged"])
+                                  "gqa24-ragged", "kimi-d112"])
 def test_flash_plain_matches_pallas_interpret(case, dtype, ref):
     b, sq, skv, h, kv, d, causal, window, q_offset = FLASH_CASES[case]
     arrays = flash_inputs(2, b, sq, skv, h, kv, d)
@@ -153,7 +159,7 @@ def test_decode_plain_matches_reference_oracle(case, dtype, ref):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["gqa", "mqa-ring", "zamba2-mha",
-                                  "gqa24-ragged"])
+                                  "gqa24-ragged", "kimi-d112"])
 def test_decode_plain_matches_pallas_interpret(case, dtype, ref):
     b, s, h, kv, d, window = DECODE_CASES[case]
     arrays = decode_inputs(5, b, s, h, kv, d)
@@ -221,6 +227,24 @@ def test_kernel_input_checks():
         decode_check(dq, odd, dv, sp, None)
 
 
+@pytest.mark.parametrize("d,takes", [(112, True), (96, False)])
+def test_kernels_take_head_dim_112_only_beside_64_and_128(d, takes):
+    """kimi-k2's D = 112 is built (zero-padded to 128 columns inside the
+    bf16 flash kernel, a template instance elsewhere); other dims such as
+    96 still raise before any launch."""
+    q, k, v = to_torch(flash_inputs(12, 1, 16, 16, 8, 1, d), "bfloat16")
+    dq, dk, dv, sp, _ = to_torch(decode_inputs(12, 1, 64, 8, 1, d),
+                                 "bfloat16")
+    if takes:
+        flash_check(q, k, v, True, None, 0)
+        decode_check(dq, dk, dv, sp, None)
+        return
+    with pytest.raises(ValueError, match="head dim"):
+        flash_check(q, k, v, True, None, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_check(dq, dk, dv, sp, None)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -244,6 +268,10 @@ CARD_FLASH = dict(FLASH_CASES, **{
     # positions 200..263 see keys 101..263: the band crosses the kv
     # tiles' edges at 128 and 256
     "offset-band-edge": (1, 64, 300, 4, 2, 128, True, 100, 200),
+    # kimi-k2's attention (H = 64, KV = 8, D = 112): its serving prefill,
+    # and a ragged one with a window and a query offset
+    "kimi-d112-path": (2, 32, 32, 64, 8, 112, True, None, 0),
+    "kimi-d112-offset": (1, 333, 1000, 64, 8, 112, True, 200, 700),
 })
 CARD_DECODE = dict(DECODE_CASES, **{
     "path-starcoder2": (2, 4096, 24, 2, 128, 4096),
@@ -256,7 +284,15 @@ CARD_DECODE = dict(DECODE_CASES, **{
     # a ring whose visible positions (the last 64, holes aside) sit at
     # slots 97..160: two chunks
     "ring-straddle": (2, 512, 16, 2, 128, 64),
+    # kimi-k2's decode (H = 64, KV = 8, D = 112): the serving cache, and
+    # the straddling ring with holes
+    "kimi-d112-path": (2, 4096, 64, 8, 112, None),
+    "kimi-d112-ring": (2, 512, 64, 8, 112, 64),
 })
+#: Cases whose cache is filled as served (slots 0..35), and rings whose
+#: position p sits at slot p % S.
+SERVING_FILL = ("serving-fill", "path-zamba2", "kimi-d112-path")
+RINGS = ("ring-straddle", "kimi-d112-ring")
 
 
 @pytest.mark.cuda
@@ -282,11 +318,11 @@ def test_flash_kernel_matches_plain_on_card(case, dtype, cuda_device):
 @pytest.mark.parametrize("case", sorted(CARD_DECODE))
 def test_decode_kernel_matches_plain_on_card(case, dtype, cuda_device):
     b, s, h, kv, d, window = CARD_DECODE[case]
-    cur = 672 if case == "ring-straddle" else max(s - 3, 0)
+    cur = 672 if case in RINGS else max(s - 3, 0)
     arrays = list(decode_inputs(10, b, s, h, kv, d, cur=cur))
-    if case in ("serving-fill", "path-zamba2"):   # slots 0..35, as served
+    if case in SERVING_FILL:              # slots 0..35, as served
         arrays[3][:, 36:] = -1
-    if case == "ring-straddle":           # position p at slot p % s
+    if case in RINGS:                     # position p at slot p % s
         pos = np.arange(cur - s + 1, cur + 1)
         arrays[3][:, pos % s] = np.where(pos % 5 == 2, -1, pos)
     if b > 1:
@@ -307,6 +343,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
                        cuda_device)
     with pytest.raises(ValueError, match="dtypes"):
         flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(*(torch.cat([t, t[..., :32]], -1)
+                               for t in (q, k, v)))      # D = 96
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_cuda(q[..., :32].contiguous(),
                              k[..., :32].contiguous(),

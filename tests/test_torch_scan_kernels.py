@@ -15,6 +15,11 @@ as ``tests/test_kernels.py`` runs them.  Tolerances, each with its reason:
 * bf16 inputs: 2e-2, the reference's ``TOL`` for bf16; y is rounded to
   bf16 on both sides.
 
+``ssm_scan_chunked_plain``, the plain mirror of B4's arithmetic (its
+chunks and, in bf16, its hi + lo splits of G, h and w o X), is held
+against the oracle and the Pallas kernel at the same bounds, so the
+rounding choice is shown on the CPU.
+
 On the card (marker ``cuda``) each CUDA kernel is held against its plain
 version, f32 at the chunked bound and bf16 at 2e-2.  The reference is
 imported inside fixtures, so the file also collects where JAX is absent.
@@ -24,7 +29,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssm_scan import (CHUNK, ssm_decode_step,
+from repro_torch.kernels.ssm_scan import (CHUNK, STATE_SHAPES,
+                                          ssm_decode_step,
+                                          ssm_scan_chunked_plain,
                                           ssm_scan_cuda, ssm_scan_plain)
 from repro_torch.kernels.ssm_scan import check_inputs as ssm_check
 from repro_torch.kernels.wkv6 import CHUNK as WKV_CHUNK
@@ -49,9 +56,11 @@ def ref():
                 wkv_pallas=wkv6_pallas)
 
 
-def ssm_inputs(seed, b, s, h, p, n, h0=False):
+def ssm_inputs(seed, b, s, h, p, n, h0=False, strong=False):
     """The reference test's distributions: softplus dt, a = -exp(0.5 z),
-    B and C at 0.3, h0 at 0.2."""
+    B and C at 0.3, h0 at 0.2.  ``strong``: a = -16 (zamba2's strongest
+    head), dt at 4 softplus(z) and h0 at 10, so that exp(s) underflows
+    within a chunk and a large state meets it."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, s, h, p), np.float32)
     dt = np.logaddexp(rng.standard_normal((b, s, h)), 0).astype(np.float32)
@@ -60,6 +69,10 @@ def ssm_inputs(seed, b, s, h, p, n, h0=False):
     cc = (rng.standard_normal((b, s, h, n)) * 0.3).astype(np.float32)
     hh = (rng.standard_normal((b, h, n, p)) * 0.2).astype(np.float32) \
         if h0 else None
+    if strong:
+        a = np.full(h, -16.0, np.float32)
+        dt = dt * np.float32(4.0)
+        hh = None if hh is None else hh * np.float32(50.0)
     return x, dt, a, bb, cc, hh
 
 
@@ -166,6 +179,96 @@ def test_ssm_plain_bf16_matches_reference_oracle(ref):
         h0=jnp.asarray(hh))
     close(as_np(y), ye, BF16_TOL)
     close(as_np(h), he, BF16_TOL)
+
+
+CHUNKED_CASES = {   # name: (b, s, h, p, n, h0, strong)
+    "ragged": (2, 100, 3, 32, 16, True, False),
+    "zamba2-prefill": (1, 32, 2, 64, 64, False, False),
+    "chunk-plus-1": (1, CHUNK + 1, 2, 64, 32, True, False),
+    "mamba2-state": (1, 70, 2, 64, 128, True, False),
+    "strong-decay": (1, 2 * CHUNK + 5, 2, 64, 64, True, True),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CHUNKED_CASES))
+def test_ssm_chunked_plain_matches_reference_oracle(case, dtype, ref):
+    """The kernels' chunked arithmetic (in bf16 with its hi + lo splits)
+    against the reference's sequential oracle: f32 at the reference's
+    chunked bound, bf16 at its ``TOL`` (x, B and C rounded to bf16 on
+    both sides)."""
+    arrays = ssm_inputs(14, *CHUNKED_CASES[case])
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    args, h0 = ssm_torch(arrays, tdt)
+    y, h = ssm_scan_chunked_plain(*args, h0=h0)
+    assert y.dtype == tdt and h.dtype == torch.float32
+    jnp = ref["jnp"]
+    x, dt, a, bb, cc, hh = arrays
+    ye, he = ref["oracle"].ssm_scan(
+        jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(dt), jnp.asarray(a),
+        jnp.asarray(bb, getattr(jnp, dtype)),
+        jnp.asarray(cc, getattr(jnp, dtype)),
+        h0=None if hh is None else jnp.asarray(hh))
+    tol = CHUNKED_TOL if dtype == "float32" else BF16_TOL
+    close(as_np(y), ye, tol)
+    close(as_np(h), he, tol)
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_chunked_plain_matches_pallas_interpret(chunk, dtype, ref):
+    """Against the Pallas kernel in interpret mode, whose chunks are 64
+    or 128 steps, at the reference's bounds for each dtype."""
+    arrays = ssm_inputs(15, 1, 256, 2, 64, 64, True)
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    args, h0 = ssm_torch(arrays, tdt)
+    y, h = ssm_scan_chunked_plain(*args, h0=h0)
+    ye, he = ref["ssm_pallas"](*jx(ref, arrays[:5], dtype)[:1],
+                               *jx(ref, arrays[1:3]),
+                               *jx(ref, arrays[3:5], dtype),
+                               h0=jx(ref, arrays[5:])[0], interpret=True,
+                               chunk=chunk)
+    tol = CHUNKED_TOL if dtype == "float32" else BF16_TOL
+    close(as_np(y), ye, tol)
+    close(as_np(h), he, tol)
+
+
+def test_ssm_chunked_plain_bf16_split_is_what_holds_it():
+    """A control for the test above: the same chunks with G, h and w o X
+    each rounded once to bf16 (no lo part) drift further from the
+    sequential recurrence than the hi + lo split does, at a long
+    sequence with a state."""
+    import repro_torch.kernels.ssm_scan as mod
+    args, h0 = ssm_torch(ssm_inputs(16, 1, 4 * CHUNK, 2, 64, 64, True),
+                         torch.bfloat16)
+    _, want = ssm_scan_plain(*args, h0=h0)
+    _, split = ssm_scan_chunked_plain(*args, h0=h0)
+    hi_lo = mod._hi_lo
+    try:
+        mod._hi_lo = lambda t: t.to(torch.bfloat16).float()
+        _, once = ssm_scan_chunked_plain(*args, h0=h0)
+    finally:
+        mod._hi_lo = hi_lo
+    err_split = float((split - want).abs().max())
+    err_once = float((once - want).abs().max())
+    assert err_split < 1e-3 < err_once
+
+
+def test_ssm_chunked_plain_state_continuation():
+    """Two parts with the state carried, split off the chunk grid, ==
+    one pass over the whole: the chunks' boundaries move and h carries
+    across them."""
+    args, h0 = ssm_torch(ssm_inputs(19, 1, 2 * CHUNK + 22, 2, 64, 64, True))
+    y_full, h_full = ssm_scan_chunked_plain(*args, h0=h0)
+    cut = CHUNK + 7
+    first = [t[:, :cut] for t in args[:2]] + [args[2]] + \
+        [t[:, :cut] for t in args[3:]]
+    second = [t[:, cut:] for t in args[:2]] + [args[2]] + \
+        [t[:, cut:] for t in args[3:]]
+    y1, h1 = ssm_scan_chunked_plain(*first, h0=h0)
+    y2, h2 = ssm_scan_chunked_plain(*second, h0=h1)
+    close(as_np(torch.cat([y1, y2], 1)), as_np(y_full), SEQ_TOL)
+    close(as_np(h2), as_np(h_full), SEQ_TOL)
 
 
 def test_ssm_decode_step_matches_reference(ref):
@@ -284,8 +387,15 @@ def test_kernel_input_checks():
     (x, dt, a, b, c), _ = ssm_torch(ssm_inputs(10, 1, 8, 2, 64, 64),
                                     torch.bfloat16)
     ssm_check(x, dt, a, b, c, None)
+    assert (128, 64) in STATE_SHAPES        # Mamba2's own d_state, headdim
+    (x2, dt2, a2, b2, c2), _ = ssm_torch(ssm_inputs(10, 1, 8, 2, 64, 128),
+                                         torch.bfloat16)
+    ssm_check(x2, dt2, a2, b2, c2, None)
     with pytest.raises(ValueError, match=r"\(N, P\)"):
         ssm_check(x[..., :48].contiguous(), dt, a, b, c, None)
+    odd = torch.empty(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        ssm_check(odd, dt, a, b, c, None)
     with pytest.raises(ValueError, match="dtypes"):
         ssm_check(x, dt, a, b.float(), c, None)
     with pytest.raises(ValueError, match="float32"):
@@ -331,7 +441,15 @@ CARD_SSM = dict(SSM_CASES, **{
     "zamba2-prefill": (2, 32, 64, 64, 64, False),
     "ragged-chunks": (1, 2 * CHUNK + 3, 3, 64, 32, True),
     "exact-chunks": (2, 2 * CHUNK, 2, 64, 64, False),
+    # the edges of the chunks and of the double-buffered loads
+    "chunk-minus-1": (1, CHUNK - 1, 3, 64, 64, True),
+    "chunk-plus-1": (2, CHUNK + 1, 2, 64, 64, False),
+    "one-step-64": (2, 1, 4, 64, 64, True),
+    "three-chunks-plus-1": (1, 3 * CHUNK + 1, 2, 64, 64, True),
+    # Mamba2's own (N, P): every STATE_SHAPES entry has a case
+    "mamba2-state": (1, 2 * CHUNK + 9, 2, 64, 128, True),
 })
+assert {(v[4], v[3]) for v in CARD_SSM.values()} >= set(STATE_SHAPES)
 CARD_WKV = {k: v for k, v in WKV_CASES.items() if v[3] == 64}
 CARD_WKV.update({
     "rwkv6-prefill": (2, 32, 64, 64, False),
@@ -358,6 +476,22 @@ def test_ssm_kernel_matches_plain_on_card(case, dtype, cuda_device):
     torch.cuda.synchronize()
     assert ssm_scan_cuda.launches == before + 1
     assert y.dtype == dtype and y.shape == args[0].shape
+    ye, he = ssm_scan_plain(*args, h0=h0)
+    close(as_np(y), as_np(ye), CARD_TOL[dtype])
+    close(as_np(h), as_np(he), CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, CHUNK - 1, 2 * CHUNK + 5])
+def test_ssm_kernel_strong_decay_on_card(s, dtype, cuda_device):
+    """a = -16 with large dt (exp(s) underflows inside a chunk) and a
+    large h0: finite, and within the card's tolerance."""
+    args, h0 = ssm_torch(ssm_inputs(17, 2, s, 4, 64, 64, True, True), dtype,
+                         cuda_device)
+    y, h = ssm_scan_cuda(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
     ye, he = ssm_scan_plain(*args, h0=h0)
     close(as_np(y), as_np(ye), CARD_TOL[dtype])
     close(as_np(h), as_np(he), CARD_TOL[dtype])
