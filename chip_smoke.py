@@ -40,13 +40,26 @@ Phases, each printing its own lines:
    ``repro_torch.workloads.quickstart_trace``), through
    ``Scenario.kiss(4096.0)`` (2 pools x 1024 slots) and the 16-node
    ``het16_cluster("size_aware")`` (32 pools x 256 slots) in every step
-   mode on the card, under
+   mode on the card, then the whole trace in chunks of ``CHUNK_EVENTS``
+   (kiss4096 in every mode, het16 in ``fused``), under
    ``torch.cuda.set_sync_debug_mode("error")`` (no per-event host sync),
-   with B1's launch count zeroed just before and read just after; every
-   mode must give the same per-event ``(node, outcome)`` and match the
-   digests of the JAX reference (``GOLDEN``, pinned by
-   ``tests/test_torch_sim.py``), bitwise; a CPU ``gather`` run must match
-   them too; then the device's busy share over a profiled stretch;
+   with every count zeroed just before and read just after; each run goes
+   through the block runner (``repro_torch.cluster.graphs``: each block
+   of ``BLOCK_EVENTS`` events one CUDA graph replay, a chunk's remainder
+   eager), whose replay and eager counts must be whole blocks and
+   remainders, and B1 must launch once a fused event; every run must
+   match the digests of the JAX reference (``GOLDEN`` and
+   ``GOLDEN_FULL``, pinned by ``tests/test_torch_sim.py`` and
+   ``tests/test_torch_replay.py``), bitwise; a CPU ``gather`` run must
+   match them too; each run prints its events/s and the share of its
+   wall spent capturing;
+   then the failure path: het16 with two node outages over the head
+   (``FAIL_WINDOWS``), monolithic and in chunks of ``FAIL_CHUNK``, in
+   every mode, held to ``GOLDEN_FAIL`` (digests, residents invalidated
+   per node, ``downtime_pct``; pinned by
+   ``tests/test_torch_failures.py``); then the device's busy share over
+   two graph replays, with B1's kernel records in ``fused`` seen at most
+   once an event;
 7. the serving path at full width: the four models of
    ``launch.serve.default_registry(4)``, starcoder2-3b, rwkv6-7b,
    zamba2-1.2b and glm4-9b (random bf16 weights from a seed), behind one
@@ -88,12 +101,14 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-#: The simulator path runs the first ``SIM_EVENTS`` events of the
-#: quickstart trace (every engine is prefix-consistent, so they are the
-#: first outcomes of the full run); the whole trace took ~6 minutes over
-#: the six card runs and two CPU runs (NVIDIA H100 80GB HBM3, 700.00 W),
-#: which the serving path now shares.
+#: The simulator path's monolithic runs take the first ``SIM_EVENTS``
+#: events of the quickstart trace (every engine is prefix-consistent, so
+#: they are the first outcomes of the full run); its chunked runs take
+#: the whole trace in chunks of ``CHUNK_EVENTS`` (3,000, 3,000, 3,000 and
+#: 2,215: for any power-of-two block from 16 to 512 events each chunk
+#: leaves an eager remainder).
 SIM_EVENTS = 4000
+CHUNK_EVENTS = 3000
 #: The JAX reference's per-event results on that head (blake2s of the
 #: int32 bytes of ``node``/``outcome``; outcome counts hit/miss/drop) and
 #: the whole trace's fingerprint.
@@ -108,6 +123,31 @@ GOLDEN = {
         outcome="f25d51137f32672d5f779316014d605b3ba5cdf337ad8e592971fcdd6201281d",
         counts=[3785, 180, 35]),
 }
+#: The JAX reference's results on the whole trace (``chunk_events=3000``;
+#: its chunked runs equal its monolithic ones), for the chunked runs.
+GOLDEN_FULL = {
+    "kiss4096": dict(
+        node="38e86a450f4b173d799627da98a5cb91d1f0ec4859c179c575f209f1c4b8f94b",
+        outcome="f505a59d7e0ff83363854ecfddaac3cfb578e3b5147c53f1dbb60ebd1589cbbd",
+        counts=[6783, 2988, 1444]),
+    "het16_size_aware": dict(
+        node="5343eaef53911129c43daf12ec35c7272bf9863fe038ddd8286687984cb0f49f",
+        outcome="9f0f67d28a2c7524544c18be9b92b718f71b3e7ec8900d763eb29b1057b19016",
+        counts=[10920, 222, 73]),
+}
+#: The failure phase: ``het16_cluster("size_aware")`` over the
+#: ``SIM_EVENTS`` head with nodes 0 and 2 down over these fractions of
+#: the head's last event time (``tests/test_replay.py``'s windows), run
+#: monolithic and in chunks of ``FAIL_CHUNK``; the JAX reference's
+#: digests, residents invalidated per node and ``downtime_pct``.
+FAIL_WINDOWS = ((0.2, 0.5, 0), (0.4, 0.8, 2))
+FAIL_CHUNK = 1000
+GOLDEN_FAIL = dict(
+    node="b4b4be3228a94f47c261a1cc7c9606663f85cd3eba8afab41154ff2d3873c8b1",
+    outcome="5b03c2a4db60c7cb6efda850c3b4b55d93362f3c342deb49987733501429dcc2",
+    counts=[3480, 462, 58],
+    invalidated=[9, 0, 13] + [0] * 13,
+    downtime_pct=4.3140625)
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core op/s,
 #: dense bf16 tensor-core op/s.
@@ -709,9 +749,11 @@ def scenarios():
                 het16_cluster("size_aware"))}
 
 
-def check_result(name: str, run: str, res, n_events: int) -> dict:
+def check_result(name: str, run: str, res, n_events: int,
+                 golden=None) -> dict:
     """Check the ``run`` of scenario ``name``: shapes, ranges, a finite
-    summary, and the JAX reference's digests.  Returns the summary."""
+    summary, and the JAX reference's digests (``golden``, by default
+    ``GOLDEN[name]``).  Returns the summary."""
     what = f"{name}/{run}"
     node, outcome = res.node, res.outcome
     n_nodes = res.scenario.n_nodes
@@ -723,8 +765,8 @@ def check_result(name: str, run: str, res, n_events: int) -> dict:
           f"{what}: non-finite summary value")
     got = dict(node=digest(node), outcome=digest(outcome),
                counts=np.bincount(outcome, minlength=3).tolist())
-    check(got == GOLDEN[name],
-          f"{what}: {got} != the JAX reference {GOLDEN[name]}")
+    want = GOLDEN[name] if golden is None else golden
+    check(got == want, f"{what}: {got} != the JAX reference {want}")
     return summary
 
 
@@ -738,73 +780,221 @@ def sync_guard_refuses(dev) -> bool:
     return False
 
 
-def path_phase(dev, trace) -> dict:
+class RunCounts:
+    """The block runner's counts and B1's launches over one run."""
+
+    def __init__(self):
+        from repro_torch.cluster import graphs
+        from repro_torch.kernels.pool_step import evict_place_cuda
+        self.stats, self.b1 = graphs.STATS, evict_place_cuda
+        self.before = (dict(self.stats), self.b1.launches)
+
+    def delta(self) -> dict:
+        stats0, b1 = self.before
+        out = {k: self.stats[k] - stats0[k] for k in self.stats}
+        out["b1_launches"] = self.b1.launches - b1
+        return out
+
+
+def zero_counts() -> None:
+    """Set every count of the simulator path to 0 (a path starts)."""
+    from repro_torch.cluster import graphs
     from repro_torch.kernels.pool_step import evict_place_cuda
+    evict_place_cuda.launches = 0
+    for k in graphs.STATS:
+        graphs.STATS[k] = type(graphs.STATS[k])(0)
+
+
+def spans_of(n: int, chunk: int) -> list[int]:
+    """The chunk lengths of an ``n``-event run in chunks of ``chunk``."""
+    return [min(chunk, n - s) for s in range(0, n, chunk)]
+
+
+def runner_check(what: str, counts: dict, spans, mode: str) -> None:
+    """The runner stepped each span of ``spans`` events as its whole
+    blocks (graph replays) and an eager remainder, and a fused run
+    launched B1 once an event."""
+    from repro_torch.cluster.graphs import BLOCK_EVENTS as k
+    want = (sum(c // k for c in spans), sum(c % k for c in spans))
+    got = (counts["blocks"], counts["eager_events"])
+    check(got == want, f"{what}: (replays, eager events) {got} != {want}")
+    b1 = sum(spans) if mode == "fused" else 0
+    check(counts["b1_launches"] == b1,
+          f"{what}: B1 launched {counts['b1_launches']} times, want {b1}")
+
+
+def timed_run(what: str, spans, mode: str, fn):
+    """Run ``fn`` (one ``simulate``), check the runner's counts, print
+    its rate and the share of its wall spent warming up and capturing."""
+    counts = RunCounts()
+    t0 = time.perf_counter()
+    res = fn()
+    dt = time.perf_counter() - t0
+    c = counts.delta()
+    runner_check(what, c, spans, mode)
+    n = sum(spans)
+    print(f"path {what}: {n} events in {dt:.2f} s = {n / dt:.1f} events/s "
+          f"({c['blocks']} graph replays, {c['eager_events']} eager events, "
+          f"{c['captures']} captures = {100 * c['capture_s'] / dt:.1f}% of "
+          "the wall)", flush=True)
+    return res, dict(events=n, wall_s=dt, events_per_s=n / dt, **c)
+
+
+def path_phase(dev, trace) -> dict:
+    from repro_torch.cluster.graphs import BLOCK_EVENTS
     from repro_torch.sim import simulate
     from repro_torch.sim.api import trace_fingerprint
 
     check(trace_fingerprint(trace) == GOLDEN_TRACE,
           "the stored trace differs from the one the reference ran")
-    trace = trace.head(SIM_EVENTS)
-    n = len(trace)
+    head = trace.head(SIM_EVENTS)
+    n, full = len(head), len(trace)
+    chunks = spans_of(full, CHUNK_EVENTS)
     modes = ("gather", "vmap", "fused")
-    summaries, rates = {}, {}
+    chunked = (("kiss4096", "gather"), ("kiss4096", "vmap"),
+               ("kiss4096", "fused"), ("het16_size_aware", "fused"))
+    scns = scenarios()
+    summaries, runs = {}, {}
+    print(f"path: block runner, {BLOCK_EVENTS} events a graph", flush=True)
     torch.cuda.set_sync_debug_mode("error")
     try:
         check(sync_guard_refuses(dev),
               "sync debug mode did not refuse a host sync")
-        evict_place_cuda.launches = 0       # the main path starts here
-        for name, scn in scenarios().items():
+        zero_counts()                       # the main path starts here
+        total = RunCounts()
+        for name, scn in scns.items():
             for mode in modes:
-                t0 = time.perf_counter()
-                res = simulate(scn, trace, mode=mode, device=dev)
-                dt = time.perf_counter() - t0
+                res, runs[f"{name}/{mode}"] = timed_run(
+                    f"{name} mode={mode} on {dev}", [n], mode,
+                    lambda: simulate(scn, head, mode=mode, device=dev))
                 summaries[name, mode] = check_result(name, mode, res, n)
-                rates[name, mode] = n / dt
-                print(f"path {name} mode={mode} on {dev}: {n} events in "
-                      f"{dt:.2f} s = {n / dt:.1f} events/s; matches the "
-                      f"JAX reference bitwise", flush=True)
-        launches = evict_place_cuda.launches  # ... and ends here
+        for name, mode in chunked:
+            res, runs[f"{name}/{mode}/chunked"] = timed_run(
+                f"{name} mode={mode} chunk_events={CHUNK_EVENTS} on {dev}",
+                chunks, mode,
+                lambda: simulate(scns[name], trace, mode=mode, device=dev,
+                                 chunk_events=CHUNK_EVENTS))
+            check_result(name, f"{mode}/chunked", res, full,
+                         GOLDEN_FULL[name])
+        counts = total.delta()                # ... and ends here
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    check(launches == 2 * n,
-          f"fused runs launched the kernel {launches} times, want {2 * n}")
-    for name, scn in scenarios().items():
+    fused = 2 * n + sum(full for _, m in chunked if m == "fused")
+    check(counts["b1_launches"] == fused,
+          f"fused runs launched B1 {counts['b1_launches']} times, want "
+          f"{fused}")
+    print(f"path: matches the JAX reference bitwise; B1 launched "
+          f"{counts['b1_launches']} times, once a fused event", flush=True)
+    for name, scn in scns.items():
         t0 = time.perf_counter()
-        res = simulate(scn, trace, mode="gather", device="cpu")
+        res = simulate(scn, head, mode="gather", device="cpu")
         dt = time.perf_counter() - t0
         summary = check_result(name, "cpu", res, n)
         for mode in modes:
             check(summaries[name, mode] == summary,
                   f"{name}/{mode}: summary differs from the CPU run")
+        runs[f"{name}/gather/cpu"] = dict(events=n, wall_s=dt,
+                                          events_per_s=n / dt)
         print(f"path {name} mode=gather on cpu: {n / dt:.1f} events/s; "
               f"equal to the card's runs", flush=True)
-    return {"launches": launches, "rates": rates}
+    return {"launches": counts["b1_launches"], "counts": counts,
+            "runs": runs}
 
 
-def busy_phase(dev, trace, n_events: int = 200) -> dict:
-    """Device busy share over the first ``n_events`` of the kiss
-    scenario in each mode: summed device time of every kernel and copy
-    the profiler saw, over the host wall time of the run.  The window is
-    short because the profiler's post-processing costs ~0.1 s an event."""
-    from torch.profiler import ProfilerActivity, profile
+def failure_scenario(head):
+    from repro_torch.sim import Failures
+    t_end = float(head.t[-1])
+    return dataclasses.replace(
+        scenarios()["het16_size_aware"], failures=Failures(tuple(
+            (lo * t_end, hi * t_end, node)
+            for lo, hi, node in FAIL_WINDOWS)))
+
+
+def failure_phase(dev, trace) -> dict:
+    """Failure injection on the card: the failure scenario monolithic
+    and chunked in every mode, held to the JAX reference's digests,
+    invalidations and downtime, chunked equal to monolithic."""
     from repro_torch.sim import simulate
+    head = trace.head(SIM_EVENTS)
+    n, scn = len(head), failure_scenario(head)
+    golden = {k: GOLDEN_FAIL[k] for k in ("node", "outcome", "counts")}
+    runs, node_up = {}, None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        zero_counts()                       # the failure path starts here
+        total = RunCounts()
+        for mode in ("gather", "vmap", "fused"):
+            for chunk in (None, FAIL_CHUNK):
+                spans = spans_of(n, chunk or n)
+                what = f"failures mode={mode} chunk_events={chunk}"
+                res, runs[f"{mode}/{chunk or 'mono'}"] = timed_run(
+                    what, spans, mode,
+                    lambda: simulate(scn, head, mode=mode, device=dev,
+                                     chunk_events=chunk))
+                s = check_result("het16_size_aware", what, res, n, golden)
+                check(res.invalidated.tolist() == GOLDEN_FAIL["invalidated"],
+                      f"{what}: invalidated {res.invalidated.tolist()}")
+                check(s["downtime_pct"] == GOLDEN_FAIL["downtime_pct"],
+                      f"{what}: downtime_pct {s['downtime_pct']}")
+                if node_up is None:
+                    node_up = res.node_up
+                check(np.array_equal(res.node_up, node_up),
+                      f"{what}: node_up differs from the first run")
+        counts = total.delta()                # ... and ends here
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"failures: every run matches the JAX reference bitwise "
+          f"(invalidated {GOLDEN_FAIL['invalidated'][:3]}..., downtime "
+          f"{GOLDEN_FAIL['downtime_pct']}%); B1 launched "
+          f"{counts['b1_launches']} times", flush=True)
+    return {"launches": counts["b1_launches"], "counts": counts,
+            "runs": runs}
+
+
+def busy_phase(dev, trace) -> dict:
+    """Device busy share over two graph replays (the first
+    ``2 * BLOCK_EVENTS`` events) of the kiss scenario in each mode:
+    summed device time of every kernel and copy the profiler saw, over
+    the host wall time of the run.  The window is short because the
+    profiler's post-processing costs ~0.1 s an event.  In ``fused`` the
+    profile must also hold B1's ``evict_place_kernel`` at most once an
+    event: the launches the runner adds per replay, seen on the device.
+    A session that comes back with no kernel record at all (PERF.md §7)
+    is taken again, four in all, as ``kernel_ms`` does."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.cluster.graphs import BLOCK_EVENTS
+    from repro_torch.sim import simulate
+    n_events = 2 * BLOCK_EVENTS
     head, scn = trace.head(n_events), scenarios()["kiss4096"]
     out = {}
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0.0)
     for mode in ("gather", "fused"):
         simulate(scn, head.head(50), mode=mode, device=dev)   # warm-up
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            simulate(scn, head, mode=mode, device=dev)
-            wall = time.perf_counter() - t0
-        def dev_us(e):
-            return getattr(e, "self_device_time_total", 0.0)
-        events = prof.key_averages()
+        for attempt in range(4):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                simulate(scn, head, mode=mode, device=dev)
+                wall = time.perf_counter() - t0
+            events = prof.key_averages()
+            if any(dev_us(e) > 0 for e in events):
+                break
+        b1 = sum(e.count for e in events
+                 if any(n in e.key for n in POOL_KERNELS))
+        if mode == "fused":
+            check(1 <= b1 <= n_events,
+                  f"busy fused: {b1} evict_place_kernel records over "
+                  f"{n_events} events: want 1 to {n_events}")
+            out["fused_b1_records"] = b1
+        else:
+            check(b1 == 0, f"busy {mode}: {b1} evict_place_kernel records")
         top = sorted(events, key=dev_us, reverse=True)[:3]
         out[mode] = sum(dev_us(e) for e in events) / 1e6 / wall
         print(f"busy {mode}: device busy {100 * out[mode]:.1f}% of "
-              f"{wall:.2f} s wall over {n_events} events; top device "
+              f"{wall:.2f} s wall over {n_events} events; "
+              f"{b1} evict_place_kernel records; top device "
               "time: " + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms"
                                    for e in top), flush=True)
     return out
@@ -1277,12 +1467,14 @@ def main() -> int:
           flush=True)
     t_start = time.perf_counter()
     build_phase(_build)
+    from repro_torch.cluster.graphs import BLOCK_EVENTS
+    from repro_torch.workloads import quickstart_trace
+    trace = quickstart_trace()
     kernels = kernel_phase(dev)
     attention = attention_phase(dev)
     scans = scan_phase(dev)
-    from repro_torch.workloads import quickstart_trace
-    trace = quickstart_trace()
     path = path_phase(dev, trace)
+    failures = failure_phase(dev, trace)
     busy = busy_phase(dev, trace)
     serving = serving_phase(dev)
     eviction = eviction_phase(dev, serving["sizes"])
@@ -1293,6 +1485,7 @@ def main() -> int:
                     source="src/repro_torch/kernels/csrc/pool_step.cu",
                     replaces="src/repro/kernels/pool_step.py:43",
                     launches=path["launches"],
+                    launches_failure_path=failures["launches"],
                     cuda_kernels=POOL_KERNELS,
                     cuda_kernel_launches=path["launches"],
                     max_abs_err=max(r["max_abs_err"]
@@ -1329,8 +1522,10 @@ def main() -> int:
     print("kernels: " + json.dumps([e["name"] for e in entries]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
-        "events_per_s": {f"{k[0]}/{k[1]}": v
-                         for k, v in path["rates"].items()},
+        "simulator": {"block_events": BLOCK_EVENTS, "runs": path["runs"],
+                      "counts": path["counts"]},
+        "failures": {"runs": failures["runs"],
+                     "counts": failures["counts"]},
         "device_busy_share": busy,
         "serving": {k: serving[k] for k in ("stats", "wall_s", "models",
                                             "peak_gb", "busy")},

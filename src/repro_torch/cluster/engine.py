@@ -1,9 +1,10 @@
 """Cluster engine on torch: N heterogeneous nodes, one loop over events.
 
-The port of the static path of ``repro.cluster.engine``.  Every node owns
-two warm pools (a unified node uses pool 0 with the whole node memory and
-a zero-capacity pool 1), and all ``2N`` pools are stacked on one leading
-axis of a single :class:`PoolState`.  Per event:
+The port of ``repro.cluster.engine`` (static, failure-injected and
+chunked runs).  Every node owns two warm pools (a unified node uses pool
+0 with the whole node memory and a zero-capacity pool 1), and all ``2N``
+pools are stacked on one leading axis of a single :class:`PoolState`.
+Per event:
 
 1. each node's load signal (``free``/``capacity`` of the pool that would
    serve this request) is read across the stacked axis;
@@ -21,16 +22,30 @@ axis of a single :class:`PoolState`.  Per event:
      decision in the hand-written CUDA kernel (the ``"fused"`` step
      backend of ``repro_torch.kernels.pool_step``).
 
-The reference's ``lax.scan`` becomes a host loop over events.  The loop
-never reads a device value back: it indexes with tensors only
-(``index_select``/``gather``/``where``), writes each event's node and
-outcome into preallocated device tensors, and the results cross to the
-host once, at the end.  Loading the inputs and that final copy are the
-run's only sync points (``_device.sync_point``).  Pool state is updated
-in place in gather mode.
+A failure schedule (``Failures``) is compiled on the host into per-event
+``up``/``recover`` bool[T, N] masks: each event first clears the pools
+of a node recovering at it (:func:`_invalidate_nodes`, counting the
+residents killed), then routes with ``RouteCtx.node_up`` set to its
+``up`` row; a request routed to a down node drops to the cloud and no
+pool of a down node changes.
 
-Not ported yet: failures (ROADMAP A5), chunked runs (A6), autoscaling
-(A8), telemetry (A9), chains (A10), vertical scaling (A11), sweeps (A12).
+The reference's ``lax.scan`` becomes a loop over events that never
+reads a device value back: it indexes with tensors only
+(``index_select``/``gather``/``where``) and writes each event's node and
+outcome into preallocated device tensors.  On the CPU a monolithic run
+is that loop on the host (:func:`_run_events`).  Every other run goes
+through the block runner of :mod:`repro_torch.cluster.graphs`, chunk by
+chunk (``chunk_events``; on the card a monolithic run is one chunk of
+the whole trace): the events stay in host numpy, one chunk at a time is
+uploaded, its blocks of ``BLOCK_EVENTS`` events run as one CUDA graph
+replay each (eagerly on the CPU), the chunk's last ``c mod K`` events
+run eagerly, the pool state is carried in place from chunk to chunk (the
+reference's donated carry), and the chunk's outputs are read back.
+Uploads and read-backs are the run's only sync points
+(``_device.sync_point``).
+
+Not ported yet: autoscaling (ROADMAP A8), telemetry (A9), chains (A10),
+vertical scaling (A11), sweeps (A12).
 """
 from __future__ import annotations
 
@@ -41,12 +56,13 @@ import torch
 
 from .._device import resolve_device, sync_point
 from ..core import xp
-from ..core.continuum import ClusterConfig, cloud_cold_draws, route_hashes
+from ..core.continuum import (ClusterConfig, Failures, cloud_cold_draws,
+                              route_hashes)
 from ..core.pool import (Event, PoolState, _evict_place_lax,
                          get_step_backend, init_pool, pool_step_batch,
                          stack_pools)
 from ..core.registry import ROUTING, RouteCtx
-from ..core.types import PoolConfig, Trace
+from ..core.types import DROP, PoolConfig, Trace
 from .metrics import ClusterResult, build_result
 
 #: The step formulations, in documentation order.
@@ -60,9 +76,23 @@ def check_step_mode(mode: str) -> None:
             f"mode must be one of {STEP_MODES}, got {mode!r}")
 
 
+def check_chunk_events(chunk_events) -> int | None:
+    """Validate (and normalize) a ``chunk_events`` argument."""
+    if chunk_events is None:
+        return None
+    try:
+        ok = int(chunk_events) == chunk_events and chunk_events >= 1
+    except (TypeError, ValueError):
+        ok = False
+    if not ok:
+        raise ValueError("chunk_events must be a positive integer or None, "
+                         f"got {chunk_events!r}")
+    return int(chunk_events)
+
+
 class ClusterEvent(NamedTuple):
     """One invocation plus its precomputed node hashes (0-d tensors), or
-    a whole trace of them (``[T]`` tensors)."""
+    a whole trace of them (``[T]`` arrays)."""
 
     t: torch.Tensor
     func_id: torch.Tensor
@@ -74,20 +104,32 @@ class ClusterEvent(NamedTuple):
     h2: torch.Tensor     # second (Knuth multiplicative) hash
 
 
-def cluster_events(trace: Trace, n_nodes: int, device) -> ClusterEvent:
-    """The trace as ``[T]`` device tensors, each with the reference's
-    dtype (f32 times and sizes, i32 ids, classes and hashes)."""
+def _host_events(trace: Trace, n_nodes: int) -> ClusterEvent:
+    """The trace as ``[T]`` numpy columns with the reference's dtypes
+    (f32 times and sizes, i32 ids, classes and hashes); a chunked run
+    uploads one slice of them at a time."""
     h1, h2 = route_hashes(trace.func_id, n_nodes)
-    f32, i32 = torch.float32, torch.int32
-
-    def col(a, dtype):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
-
     return ClusterEvent(
-        t=col(trace.t, f32), func_id=col(trace.func_id, i32),
-        size=col(trace.size_mb, f32), cls=col(trace.cls, i32),
-        warm=col(trace.warm_dur, f32), cold=col(trace.cold_dur, f32),
-        h1=col(h1, i32), h2=col(h2, i32))
+        t=np.asarray(trace.t, np.float32),
+        func_id=np.asarray(trace.func_id, np.int32),
+        size=np.asarray(trace.size_mb, np.float32),
+        cls=np.asarray(trace.cls, np.int32),
+        warm=np.asarray(trace.warm_dur, np.float32),
+        cold=np.asarray(trace.cold_dur, np.float32),
+        h1=h1, h2=h2)
+
+
+def _upload(arrays, s: int, e: int, device) -> tuple:
+    """Events ``[s, e)`` of host arrays as tensors on ``device`` (the
+    reference's ``_chunk_slice``/``_chunk_mask``, without their pad: the
+    port runs a short chunk as it is)."""
+    return tuple(torch.tensor(a[s:e], device=device) for a in arrays)
+
+
+def cluster_events(trace: Trace, n_nodes: int, device) -> ClusterEvent:
+    """The whole trace as ``[T]`` tensors on ``device``."""
+    return ClusterEvent(*_upload(_host_events(trace, n_nodes), 0,
+                                 len(trace), device))
 
 
 def init_cluster(cfg: ClusterConfig, device) -> PoolState:
@@ -115,12 +157,30 @@ def _route(routing: torch.Tensor, ev: ClusterEvent, free_t, cap_t, cloud,
     return nodes.index_select(0, routing).as_subclass(torch.Tensor)
 
 
+def _invalidate_nodes(pools: PoolState, mask_n: torch.Tensor, n_nodes: int):
+    """Kill every resident of the masked nodes (failure recovery): their
+    pools restart empty at their capacity with a reset GreedyDual clock.
+    Returns ``(count i32[N] residents killed, cleared pools)``."""
+    cnt2 = pools.valid.sum(-1, dtype=torch.int32)                # [2N]
+    cnt = torch.where(mask_n, cnt2.view(n_nodes, 2).sum(1, dtype=torch.int32),
+                      0)
+    m2 = mask_n.unsqueeze(1).expand(n_nodes, 2).reshape(-1)      # [2N]
+    col = m2.unsqueeze(1)
+    return cnt, pools._replace(
+        valid=torch.where(col, False, pools.valid),
+        func_id=torch.where(col, -1, pools.func_id),
+        free=torch.where(m2, pools.capacity, pools.free),
+        clock=torch.where(m2, 0.0, pools.clock))
+
+
 def _make_step(routing: torch.Tensor, unified: torch.Tensor,
                cloud: torch.Tensor, n_nodes: int, mode: str):
     """Build the per-event step (route, then step the routed pool).
     ``routing`` is the int64[1] routing code, ``unified`` bool[N] and
     ``cloud`` the f32[2] ``(cloud_rtt_s, cloud_cold_prob)``, all on the
-    run's device."""
+    run's device.  ``up_n`` (bool[N], optional) is the live-node mask:
+    routing reads it through ``RouteCtx.node_up``, and a request routed
+    to a down node drops to the cloud with every pool left as it was."""
     n = n_nodes
     dev = unified.device
     all_up = xp.asx(torch.ones(n, dtype=torch.bool, device=dev))
@@ -133,71 +193,182 @@ def _make_step(routing: torch.Tensor, unified: torch.Tensor,
     backend = (_evict_place_lax if mode in ("gather", "vmap")
                else get_step_backend(mode))
 
-    def step(pools: PoolState, ev: ClusterEvent):
+    def step(pools: PoolState, ev: ClusterEvent, up_n=None):
         tgt = torch.where(unified, 0, ev.cls).to(torch.int64)  # [N] pool
         col = tgt.unsqueeze(1)
         free_t = pools.free.view(n, 2).gather(1, col).squeeze(1)
         cap_t = pools.capacity.view(n, 2).gather(1, col).squeeze(1)
-        node = _route(routing, ev, free_t, cap_t, cloud, all_up, no_slack,
+        node = _route(routing, ev, free_t, cap_t, cloud,
+                      all_up if up_n is None else xp.asx(up_n), no_slack,
                       no_stage)                               # [1]
+        ok = None if up_n is None else up_n.index_select(0, node)  # [1]
         p = node * 2 + tgt.index_select(0, node)              # [1]
         core_ev = Event(ev.t, ev.func_id, ev.size, ev.cls, ev.warm, ev.cold)
         if mode == "gather":
             one = PoolState(*(None if a is None else a.index_select(0, p)
                               for a in pools))
             new_one, outcome = pool_step_batch(one, core_ev, backend)
-            for a, b in zip(pools, new_one):
+            for a, b, old in zip(pools, new_one, one):
                 if a is not None:
+                    if ok is not None:      # a down node's pool is frozen
+                        b = torch.where(
+                            ok.view((1,) * b.ndim), b, old)
                     a.index_copy_(0, p, b)
         else:
             stepped, outs = pool_step_batch(pools, core_ev, backend)
             sel = pool_ids == p
+            if ok is not None:
+                sel = sel & ok
             pools = PoolState(*(
                 None if a is None else torch.where(
                     sel.view((-1,) + (1,) * (a.ndim - 1)), b, a)
                 for a, b in zip(pools, stepped)))
             outcome = outs.index_select(0, p)
+        if ok is not None:
+            outcome = torch.where(ok, outcome, DROP)
         return pools, node, outcome
 
     return step
 
 
-def _run_cluster_impl(pools: PoolState, events: ClusterEvent,
-                      routing: torch.Tensor, unified: torch.Tensor,
-                      cloud: torch.Tensor, *, n_nodes: int, mode: str):
-    """The whole trace, one event at a time, without a host sync.
-    Returns ``(node i32[T], outcome i32[T])`` on the device."""
-    step = _make_step(routing, unified, cloud, n_nodes, mode)
-    n_ev = events.t.shape[0]
-    dev = events.t.device
-    nodes = torch.empty(n_ev, dtype=torch.int32, device=dev)
-    outcomes = torch.empty(n_ev, dtype=torch.int32, device=dev)
-    for i in range(n_ev):
+def _run_events(step, pools: PoolState, inval, events: ClusterEvent, up,
+                recover, node_out: torch.Tensor, outcome_out: torch.Tensor,
+                n_nodes: int, count: int):
+    """Events ``[0, count)`` of ``events`` (``[L]`` tensors), one at a
+    time, without a host sync.  With failures (``up``/``recover``
+    bool[L, N] and ``inval`` i32[N] given) each event first clears the
+    nodes recovering at it.  Writes each event's node and outcome into
+    ``node_out``/``outcome_out`` and returns ``(pools, inval)``; in
+    ``gather`` mode the static path updates ``pools`` in place, else the
+    returned state is new tensors."""
+    for i in range(count):
         ev = ClusterEvent(*(a[i] for a in events))
-        pools, node, outcome = step(pools, ev)
-        nodes[i:i + 1].copy_(node)
-        outcomes[i:i + 1].copy_(outcome)
-    return nodes, outcomes
+        if up is None:
+            pools, node, outcome = step(pools, ev)
+        else:
+            cnt, pools = _invalidate_nodes(pools, recover[i], n_nodes)
+            inval = inval + cnt
+            pools, node, outcome = step(pools, ev, up[i])
+        node_out[i:i + 1].copy_(node)
+        outcome_out[i:i + 1].copy_(outcome)
+    return pools, inval
 
 
-def _simulate_cluster_torch(cfg: ClusterConfig, trace: Trace,
-                            device, rng_seed: int = 0,
-                            mode: str = "gather") -> ClusterResult:
-    """One static cluster run on ``device`` (required: the caller has
-    resolved it); the ``ClusterResult``."""
+def _failure_masks(failures: Failures | None, trace: Trace, n_nodes: int):
+    """Per-event up/recover bool[T, N] masks: all up and none recovering
+    without a schedule."""
+    if failures is None:
+        t = len(trace)
+        return (np.ones((t, n_nodes), bool),
+                np.zeros((t, n_nodes), bool))
+    return failures.masks(np.asarray(trace.t), n_nodes)
+
+
+def _run_inputs(cfg: ClusterConfig, device):
+    """The run's initial pools and the tensors the step reads: routing
+    code int64[1], ``unified`` bool[N] and ``cloud`` f32[2]."""
+    return (init_cluster(cfg, device),
+            torch.tensor([int(cfg.routing)], dtype=torch.int64,
+                         device=device),
+            torch.tensor(cfg.unified, dtype=torch.bool, device=device),
+            torch.tensor([cfg.cloud_rtt_s, cfg.cloud_cold_prob],
+                         dtype=torch.float32, device=device))
+
+
+def _replay(cfg: ClusterConfig, trace: Trace, device, mode: str,
+            chunk: int | None, failures: Failures | None,
+            block_events: int | None = None):
+    """Run the trace; returns ``(node i32[T], outcome i32[T], invalidated
+    i64[N] or None, node_up bool[T, N] or None)`` on the host.
+
+    A monolithic CPU run (``chunk`` None) is the host loop; every other
+    run goes chunk by chunk through the block runner (on the card a
+    monolithic run is one chunk of the whole trace).  ``block_events``
+    overrides :data:`~repro_torch.cluster.graphs.BLOCK_EVENTS`."""
+    from . import graphs
+    n, t_len = cfg.n_nodes, len(trace)
+    failing = failures is not None
+    ev_np = _host_events(trace, n)
+    masks = _failure_masks(failures, trace, n) if failing else None
+    node_np = np.empty(t_len, np.int32)
+    outcome_np = np.empty(t_len, np.int32)
+    if chunk is None and device.type == "cpu":
+        pools, routing, unified, cloud = _run_inputs(cfg, device)
+        step = _make_step(routing, unified, cloud, n, mode)
+        up, rec = (_upload(masks, 0, t_len, device) if failing
+                   else (None, None))
+        inval = torch.zeros(n, dtype=torch.int32) if failing else None
+        _, inval = _run_events(
+            step, pools, inval, ClusterEvent(*_upload(ev_np, 0, t_len,
+                                                       device)),
+            up, rec, torch.from_numpy(node_np), torch.from_numpy(outcome_np),
+            n, t_len)
+    else:
+        chunk = chunk or max(t_len, 1)
+        with sync_point(device):
+            runner = graphs.block_runner(device, n, cfg.max_slots, mode,
+                                         failing, block_events)
+            runner.load(*_run_inputs(cfg, device))
+        for s in range(0, t_len, chunk):
+            e = min(s + chunk, t_len)
+            with sync_point(device):
+                ev = ClusterEvent(*_upload(ev_np, s, e, device))
+                up, rec = (_upload(masks, s, e, device) if failing
+                           else (None, None))
+                node = torch.empty(e - s, dtype=torch.int32, device=device)
+                outcome = torch.empty_like(node)
+            runner.run_chunk(ev, up, rec, node, outcome)
+            with sync_point(device):
+                node_np[s:e] = node.cpu().numpy()
+                outcome_np[s:e] = outcome.cpu().numpy()
+        inval = runner.inval if failing else None
+    if not failing:
+        return node_np, outcome_np, None, None
+    with sync_point(device):
+        inval = inval.cpu().numpy().astype(np.int64)
+    return node_np, outcome_np, inval, masks[0]
+
+
+def _simulate_cluster(cfg: ClusterConfig, trace: Trace, device,
+                      rng_seed: int = 0, mode: str = "gather",
+                      chunk_events: int | None = None,
+                      failures: Failures | None = None,
+                      block_events: int | None = None
+                      ) -> tuple[ClusterResult, dict]:
+    """One cluster run on ``device`` (``None`` is the CUDA device),
+    monolithic or in chunks of ``chunk_events``, with or without
+    ``failures``: ``(ClusterResult, extras)``, where ``extras`` is
+    ``{"invalidated": i64[N], "node_up": bool[T, N]}`` with failures and
+    ``{}`` without."""
     check_step_mode(mode)
+    chunk = check_chunk_events(chunk_events)
     device = resolve_device(device)
-    cloud_cold = cloud_cold_draws(len(trace), cfg.cloud_cold_prob, rng_seed)
-    with sync_point(device):
-        pools = init_cluster(cfg, device)
-        events = cluster_events(trace, cfg.n_nodes, device)
-        routing = torch.tensor([int(cfg.routing)], dtype=torch.int64,
-                               device=device)
-        unified = torch.tensor(cfg.unified, dtype=torch.bool, device=device)
-        cloud = torch.tensor([cfg.cloud_rtt_s, cfg.cloud_cold_prob],
-                             dtype=torch.float32, device=device)
-    node, outcome = _run_cluster_impl(pools, events, routing, unified, cloud,
-                                      n_nodes=cfg.n_nodes, mode=mode)
-    with sync_point(device):
-        node, outcome = node.cpu().numpy(), outcome.cpu().numpy()
-    return build_result(cfg, trace, node, outcome, cloud_cold)
+    node, outcome, inval, up = _replay(cfg, trace, device, mode, chunk,
+                                       failures, block_events)
+    result = build_result(cfg, trace, node, outcome,
+                          cloud_cold_draws(len(trace), cfg.cloud_cold_prob,
+                                           rng_seed))
+    if failures is None:
+        return result, {}
+    return result, {"invalidated": inval, "node_up": up}
+
+
+# The reference's three entry points, with its return shapes.
+
+def _simulate_cluster_torch(cfg, trace, device, rng_seed=0,
+                            mode="gather") -> ClusterResult:
+    return _simulate_cluster(cfg, trace, device, rng_seed, mode)[0]
+
+
+def _simulate_cluster_failures_torch(cfg, failures, trace, device,
+                                     rng_seed=0, mode="gather"):
+    return _simulate_cluster(cfg, trace, device, rng_seed, mode,
+                             failures=failures)
+
+
+def _simulate_cluster_chunked_torch(cfg, trace, device, rng_seed=0,
+                                    mode="gather", chunk_events=65536,
+                                    failures=None, block_events=None):
+    result, extras = _simulate_cluster(cfg, trace, device, rng_seed, mode,
+                                       chunk_events, failures, block_events)
+    return result if failures is None else (result, extras)

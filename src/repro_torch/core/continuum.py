@@ -3,9 +3,10 @@
 The parts of ``repro.core.continuum`` the static cluster path needs,
 copied byte for byte because they are shared verbatim with the
 reference: ``ClusterConfig`` (with ``pool_caps``), the routing hashes,
-the pre-drawn cloud cold-start coins and the end-to-end pricing.  The
-numpy oracle (``cluster_outcomes_ref``), failures, autoscaling and
-chain plans are not ported yet (ROADMAP A5, A8, A10, A14).
+the pre-drawn cloud cold-start coins, the end-to-end pricing and the
+failure schedule (``Failures``, compiled on the host into per-event
+masks).  The numpy oracle (``cluster_outcomes_ref``), autoscaling and
+chain plans are not ported yet (ROADMAP A8, A10, A14).
 """
 from __future__ import annotations
 
@@ -33,6 +34,67 @@ if [r.name.lower() for r in RoutingPolicy] != ROUTING.names()[:4]:
     raise RuntimeError("RoutingPolicy drifted from the routing registry")
 if [p.name.lower() for p in Policy] != REPLACEMENT.names()[:3]:
     raise RuntimeError("Policy drifted from the replacement registry")
+
+
+@dataclasses.dataclass(frozen=True)
+class Failures:
+    """A node-failure schedule: ``(t_down, t_up, node)`` outage windows.
+
+    A node is *down* for every event with ``t_down <= t < t_up``: its
+    pools are frozen, routing sees it masked out of ``RouteCtx.node_up``,
+    and a request still routed to it drops to the cloud.  At the first
+    event at or after ``t_up`` the node recovers with empty pools (its
+    residents are invalidated), so the metrics show the re-warm cost.
+    :meth:`masks` compiles the schedule on the host; the engine reads the
+    masks as data.  Frozen and hashable: it rides inside a ``Scenario``.
+    """
+
+    windows: tuple[tuple[float, float, int], ...]
+
+    def __post_init__(self):
+        wins = []
+        for w in self.windows:
+            if len(w) != 3:
+                raise ValueError(
+                    f"each failure window must be (t_down, t_up, node), "
+                    f"got {w!r}")
+            t_down, t_up, node = float(w[0]), float(w[1]), int(w[2])
+            if not t_down < t_up:
+                raise ValueError(
+                    f"failure window needs t_down < t_up, got {w!r}")
+            if node < 0:
+                raise ValueError(f"failure window node must be >= 0: {w!r}")
+            wins.append((t_down, t_up, node))
+        if not wins:
+            raise ValueError("Failures needs at least one window")
+        object.__setattr__(self, "windows", tuple(wins))
+
+    @property
+    def max_node(self) -> int:
+        return max(n for _, _, n in self.windows)
+
+    def masks(self, t: np.ndarray, n_nodes: int):
+        """Compile the schedule against the sorted event times ``t``.
+
+        Returns ``(up, recover)``, both bool[T, N]: ``up[i, n]`` is whether
+        node ``n`` is live at event ``i``; ``recover[i, n]`` marks the first
+        event at or after an outage's end, before which the node's pools
+        are cleared.  A window between two events still clears (the node
+        did die), and overlapping windows clear once, when the node is
+        back up."""
+        t = np.asarray(t)
+        up = np.ones((len(t), n_nodes), bool)
+        recover = np.zeros((len(t), n_nodes), bool)
+        for t_down, t_up, node in self.windows:
+            if node >= n_nodes:
+                raise ValueError(
+                    f"failure window node {node} out of range for "
+                    f"{n_nodes} nodes")
+            up[(t >= t_down) & (t < t_up), node] = False
+            after = np.nonzero(t >= t_up)[0]
+            if len(after):
+                recover[after[0], node] = True
+        return up, recover & up
 
 
 @dataclasses.dataclass(frozen=True)

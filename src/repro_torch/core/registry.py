@@ -27,8 +27,8 @@ class RouteCtx(NamedTuple):
 
     Scalars are 0-d tensors (float32 or int32); ``free``/``cap`` are
     f32[n_nodes] views of the pool each node would serve this request
-    from, ``node_up`` the bool[n_nodes] live-node mask (all True on the
-    static path), and ``chain_slack``/``chain_stage`` the function-chain
+    from, ``node_up`` the bool[n_nodes] live-node mask (all True without
+    failures), and ``chain_slack``/``chain_stage`` the function-chain
     context (``+inf``/``-1`` on chainless traffic)."""
 
     h1: object            # i32  sticky hash: func_id % n_nodes

@@ -36,9 +36,9 @@ class Trace(NamedTuple):
     """Struct-of-arrays invocation trace, sorted by time.
 
     The three chain fields are ``None`` for chainless traces and are
-    all-or-none.  The port's static path ignores them; they exist so a
-    reference ``repro.core.types.Trace`` converts field for field
-    (``Trace(*reference_trace)``)."""
+    all-or-none.  The port's engine ignores them (chains are ROADMAP
+    A10); they exist so a reference ``repro.core.types.Trace`` converts
+    field for field (``Trace(*reference_trace)``)."""
 
     t: np.ndarray          # f32[N] event time (seconds)
     func_id: np.ndarray    # i32[N] function identity
@@ -66,13 +66,55 @@ class Trace(NamedTuple):
                 f"Trace chain fields are all-or-none; missing {missing}")
         return all(present)
 
+    def _map(self, f) -> "Trace":
+        """Apply ``f`` to every field array, passing ``None`` through: the
+        one place slicing semantics live, so the chain fields never drift
+        out of step with the core fields."""
+        return Trace(*(None if a is None else f(a) for a in self))
+
+    def replace(self, **fields) -> "Trace":
+        """A copy with the named field arrays swapped out (namedtuple's
+        ``_replace`` breaks here: its length check calls ``len()``, which
+        this class overrides to mean the event count)."""
+        d = {f: getattr(self, f) for f in self._fields}
+        for k, v in fields.items():
+            if k not in d:
+                raise ValueError(f"Trace has no field {k!r}")
+            d[k] = v
+        return Trace(**d)
+
+    def sorted_by_time(self) -> "Trace":
+        order = np.argsort(self.t, kind="stable")
+        return self._map(lambda a: a[order])
+
+    def select(self, mask: np.ndarray) -> "Trace":
+        return self._map(lambda a: a[mask])
+
     def head(self, n: int) -> "Trace":
         """The first ``n`` events (all of them when ``n >= len``); every
         engine is prefix-consistent, so ``head(n)`` replays the first
         ``n`` outcomes of the full run."""
         if n < 0:
             raise ValueError(f"head(n) needs n >= 0, got {n}")
-        return Trace(*(None if a is None else a[:n] for a in self))
+        return self._map(lambda a: a[:n])
+
+    def window(self, t0: float, t1: float) -> "Trace":
+        """Events with ``t0 <= t < t1``, absolute times kept (re-zero
+        with :meth:`shifted`)."""
+        if not t0 <= t1:
+            raise ValueError(f"window needs t0 <= t1, got ({t0}, {t1})")
+        return self.select((self.t >= t0) & (self.t < t1))
+
+    def shifted(self, dt: float | None = None) -> "Trace":
+        """Shift all times by ``dt`` (default: re-zero at the first
+        event), in the trace's own f32 so that a quantized trace stays on
+        its grid when ``dt`` is grid-aligned."""
+        if len(self) == 0:
+            return self
+        if dt is None:
+            dt = -float(self.t[0])
+        t = (self.t.astype(np.float32) + np.float32(dt)).astype(self.t.dtype)
+        return self.replace(t=t)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,8 +6,10 @@
 mode is one of ``STEP_MODES`` (``"gather"``, ``"vmap"``, ``"fused"``),
 all bitwise equal; ``"fused"`` runs the hand-written CUDA kernel of
 ``repro_torch.kernels.pool_step`` on a CUDA device and its plain torch
-version on the CPU.  Not ported yet: ``sweep`` (ROADMAP A12), chunked
-runs (A6) and the numpy oracle ``engine="ref"`` (A14).
+version on the CPU.  A scenario with ``failures`` and a run with
+``chunk_events`` give bitwise the reference's results.  Not ported
+yet: ``sweep`` (ROADMAP A12) and the numpy oracle ``engine="ref"``
+(A14).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import hashlib
 import numpy as np
 
 from .._device import resolve_device
-from ..cluster.engine import _simulate_cluster_torch, check_step_mode
+from ..cluster.engine import (_simulate_cluster, check_chunk_events,
+                              check_step_mode)
 from ..core.types import Trace
 from .result import Result
 from .scenario import Scenario
@@ -48,8 +51,13 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
     ``trace`` is a :class:`repro_torch.core.types.Trace` (a reference
     trace converts with ``Trace(*reference_trace)``).  ``rng_seed`` fixes
     the cloud cold-start draws (common random numbers, as the reference
-    draws them).  ``device`` is where the run happens: ``None`` means
-    ``"cuda"``."""
+    draws them).  ``chunk_events`` (a positive int, default ``None`` =
+    monolithic) splits the trace into chunks that are uploaded and read
+    back one at a time, with the pool state carried from chunk to chunk:
+    bitwise the monolithic results, with device memory bounded by one
+    chunk.  A scenario with ``failures`` also fills ``Result.node_up``
+    and ``Result.invalidated``.  ``device`` is where the run happens:
+    ``None`` means ``"cuda"``."""
     if engine == "ref":
         raise NotImplementedError(
             "engine='ref' (the numpy oracle) is not in the PyTorch port "
@@ -57,13 +65,14 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
     if engine not in _ENGINES:
         raise ValueError(f"engine must be one of {_ENGINES}, got {engine!r}")
     check_step_mode(mode)
-    if chunk_events is not None:
-        raise NotImplementedError(
-            "chunk_events is not in the PyTorch port yet (ROADMAP A6)")
+    chunk = check_chunk_events(chunk_events)
     dev = resolve_device(device)
-    raw = _simulate_cluster_torch(scenario.to_cluster_config(), trace,
-                                  dev, rng_seed, mode)
-    info = {"engine": engine, "mode": mode, "chunk_events": None,
+    raw, extras = _simulate_cluster(scenario.to_cluster_config(), trace,
+                                    dev, rng_seed, mode, chunk,
+                                    scenario.failures)
+    info = {"engine": engine, "mode": mode, "chunk_events": chunk,
             "devices": None, "device": str(dev), "rng_seed": rng_seed,
             "trace_fingerprint": trace_fingerprint(trace)}
-    return Result(scenario=scenario, raw=raw, run_info=info)
+    return Result(scenario=scenario, raw=raw,
+                  node_up=extras.get("node_up"),
+                  invalidated=extras.get("invalidated"), run_info=info)

@@ -2,9 +2,9 @@
 ``repro.sim.result``).
 
 ``summary()`` returns every key of the reference's :data:`SUMMARY_KEYS`,
-in order.  The keys of features this slice does not run (autoscaling,
-failures, telemetry, chains, vertical scaling) take the inert values the
-reference reports when the feature is off.
+in order.  The keys of features the port does not run yet (autoscaling,
+telemetry, chains, vertical scaling) take the inert values the reference
+reports when the feature is off.
 """
 from __future__ import annotations
 
@@ -46,8 +46,14 @@ class Result:
 
     scenario: Scenario
     raw: ClusterResult
-    #: how this run was executed: engine, mode, device, rng seed and the
-    #: trace fingerprint
+    #: bool[T, N] per-event live mask (``None`` without a failure
+    #: schedule)
+    node_up: np.ndarray | None = None
+    #: i64[N] residents invalidated per node by failure recovery (``None``
+    #: without a failure schedule; the views report zeros)
+    invalidated: np.ndarray | None = None
+    #: how this run was executed: engine, mode, chunking, device, rng
+    #: seed and the trace fingerprint
     run_info: dict | None = None
 
     # -- per-event arrays --------------------------------------------------
@@ -74,6 +80,21 @@ class Result:
     def fracs(self) -> np.ndarray:
         """f32[1, N]: a static scenario is one epoch at ``small_frac``."""
         return np.asarray([self.scenario.small_frac], np.float32)
+
+    @property
+    def node_downtime_pct(self) -> np.ndarray:
+        """f64[N] percent of events each node spent down (failures)."""
+        n = self.scenario.n_nodes
+        if self.node_up is None or not len(self.node_up):
+            return np.zeros(n)
+        return 100.0 * (1.0 - self.node_up.mean(axis=0))
+
+    @property
+    def n_invalidated(self) -> int:
+        """Total residents killed by recovery: each is a warm container
+        some function must cold-start again (the re-warm debt)."""
+        return (int(self.invalidated.sum())
+                if self.invalidated is not None else 0)
 
     # -- per-class, per-node and latency views -----------------------------
     def per_class(self) -> SimResult:
@@ -130,8 +151,8 @@ class Result:
             "frac_final_mean": float(fr[-1].mean()),
             "frac_min": float(fr.min()),
             "frac_max": float(fr.max()),
-            "downtime_pct": float(np.zeros(n).mean()),
-            "n_invalidated": 0,
+            "downtime_pct": float(self.node_downtime_pct.mean()),
+            "n_invalidated": self.n_invalidated,
             "n_active_final": n,
             "n_active_min": n,
             "n_windows": 0,

@@ -9,9 +9,11 @@ the same in both packages::
     Scenario.cluster((1024.0,) * 8 + (6144.0,) * 4,
                      routing="size_aware")     # heterogeneous cluster
 
-This slice of the port runs the static path only: a scenario that sets
-``autoscale``, ``failures``, ``telemetry``, ``chains`` or ``resize``
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+The port runs static and failure-injected scenarios (``failures=`` a
+:class:`~repro_torch.core.continuum.Failures` or an iterable of
+``(t_down, t_up, node)`` windows); a scenario that sets ``autoscale``,
+``telemetry``, ``chains`` or ``resize`` raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -21,13 +23,13 @@ from typing import Sequence
 
 import numpy as np
 
-from ..core.continuum import ClusterConfig
+from ..core.continuum import ClusterConfig, Failures
 from ..core.registry import REPLACEMENT, ROUTING
 
-#: Scenario knobs of the reference that this slice does not run yet,
-#: with the ROADMAP item that ports each.
-NOT_PORTED = {"autoscale": "A8", "failures": "A5", "telemetry": "A9",
-              "chains": "A10", "resize": "A11"}
+#: Scenario knobs of the reference that the port does not run yet, with
+#: the ROADMAP item that ports each.
+NOT_PORTED = {"autoscale": "A8", "telemetry": "A9", "chains": "A10",
+              "resize": "A11"}
 
 
 def _is_seq(x) -> bool:
@@ -97,6 +99,21 @@ class Scenario:
             raise ValueError("max_slots must be >= 1")
         if not 0.0 <= self.cloud_cold_prob <= 1.0:
             raise ValueError("cloud_cold_prob must be in [0, 1]")
+        if self.failures is not None:
+            f = self.failures
+            if not isinstance(f, Failures):
+                try:
+                    f = Failures(windows=tuple(f))
+                except TypeError:
+                    raise ValueError(
+                        "failures must be a Failures, an iterable of "
+                        f"(t_down, t_up, node) windows, or None, got "
+                        f"{f!r}") from None
+            if f.max_node >= n:
+                raise ValueError(
+                    f"failures references node {f.max_node} but the "
+                    f"scenario has {n} nodes")
+            object.__setattr__(self, "failures", f)
         # canonicalize policies to registered names (raises on unknown)
         object.__setattr__(
             self, "replacement",
@@ -153,7 +170,9 @@ class Scenario:
             return self.name
         kind = ("baseline" if all(self.unified)
                 else "kiss" if self.n_nodes == 1 else "cluster")
-        return f"{kind}-{self.n_nodes}n-{self.routing}-{self.replacement}"
+        fail = "-failures" if self.failures is not None else ""
+        return (f"{kind}-{self.n_nodes}n-{self.routing}"
+                f"-{self.replacement}{fail}")
 
     def to_cluster_config(self) -> ClusterConfig:
         """The engine-level config."""

@@ -200,12 +200,17 @@ def test_imports_without_jax_or_repro():
         sys.modules["jax"] = None          # any import of jax now fails
         import repro_torch
         import repro_torch.kernels.pool_step
+        import repro_torch.cluster.graphs
         from repro_torch.sim import Scenario, simulate
         from repro_torch.workloads import edge_trace, quickstart_trace
         tr = edge_trace(seed=0, duration_s=60.0)
         r = simulate(Scenario.kiss(1024.0, max_slots=16), tr,
                      mode="fused", device="cpu")
         assert r.summary()["total"] == len(tr) > 0
+        f = simulate(Scenario.kiss(1024.0, max_slots=16,
+                                   failures=((10.0, 30.0, 0),)), tr,
+                     mode="fused", chunk_events=50, device="cpu")
+        assert f.summary()["downtime_pct"] > 0
         bad = sorted(m for m, v in sys.modules.items() if v is not None
                      and m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
@@ -253,11 +258,13 @@ def test_unported_scenario_knobs_raise(knob):
 
 
 def test_unported_engine_and_chunking_raise(qtrace):
+    """``engine="ref"`` still raises; ``chunk_events`` is ported (A6), so
+    only a bad value raises."""
     tr, scn = PortTrace(*qtrace), scenario(T)
     with pytest.raises(NotImplementedError, match="A14"):
         T.simulate(scn, tr, engine="ref", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        T.simulate(scn, tr, chunk_events=64, device="cpu")
+    with pytest.raises(ValueError, match="chunk_events"):
+        T.simulate(scn, tr, chunk_events=0, device="cpu")
     with pytest.raises(ValueError, match="engine"):
         T.simulate(scn, tr, engine="jax", device="cpu")
     with pytest.raises(ValueError, match="mode"):
