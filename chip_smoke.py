@@ -57,9 +57,16 @@ Phases, each printing its own lines:
    (``FAIL_WINDOWS``), monolithic and in chunks of ``FAIL_CHUNK``, in
    every mode, held to ``GOLDEN_FAIL`` (digests, residents invalidated
    per node, ``downtime_pct``; pinned by
-   ``tests/test_torch_failures.py``); then the device's busy share over
-   two graph replays, with B1's kernel records in ``fused`` seen at most
-   once an event;
+   ``tests/test_torch_failures.py``); then the autoscale path: the whole
+   trace through ``autoscale_scenarios`` (kiss4096 re-splitting every
+   ``ASC_EPOCH`` events; het16 with the failure windows, re-splitting
+   and spawning or retiring nodes) in every mode, each epoch one chunk
+   of the block runner, held to ``GOLDEN_ASC`` (pinned by
+   ``tests/test_torch_autoscale.py``), with the re-split's share of the
+   wall from CUDA events around each one; then the device's busy share
+   and device records an event over two graph replays, for the static
+   and the autoscaled runner, with B1's kernel records in ``fused`` seen
+   at most once an event;
 7. the serving path at full width: the four models of
    ``launch.serve.default_registry(4)``, starcoder2-3b, rwkv6-7b,
    zamba2-1.2b and glm4-9b (random bf16 weights from a seed), behind one
@@ -149,6 +156,36 @@ GOLDEN_FAIL = dict(
     invalidated=[9, 0, 13] + [0] * 13,
     downtime_pct=4.3140625)
 
+#: The autoscale phase: the whole trace through ``autoscale_scenarios``
+#: (kiss4096 re-splitting every ``ASC_EPOCH`` events; het16 with the
+#: failure windows over the whole trace, re-splitting and spawning or
+#: retiring nodes from 12 of 16), in every mode; the JAX reference's
+#: results (``autoscale_digests``: digests of ``node``/``outcome``, of
+#: ``fracs``' f32 bytes and of ``active``, ``invalidated`` and the
+#: summary's epoch and membership keys), pinned by
+#: ``tests/test_torch_autoscale.py``.
+ASC_EPOCH = 512
+GOLDEN_ASC = {
+    "kiss4096": dict(
+        node="38e86a450f4b173d799627da98a5cb91d1f0ec4859c179c575f209f1c4b8f94b",
+        outcome="4c8f601c1e50bf4a7151e8e347fea7c85e087c6b4e6d68584eb0ca7f9cb542d7",
+        counts=[6707, 3130, 1378],
+        fracs="13e635bfaa2d2dc75025f7f7d92d902f404140d1fde056fca1f43d7a69334d66",
+        active="818fc7fc08c2f8b4ba07ee082e7c38e9ccc9efb49e408b93fc77a13bd9a2764b",
+        invalidated=[0], n_epochs=22, n_invalidated=0, n_active_final=1,
+        n_active_min=1, frac_min=0.732809841632843,
+        frac_max=0.81744384765625),
+    "het16_nodes_failures": dict(
+        node="ae21d8c97dc0a7ca2927c033769cbfc8def249e41dcb3e38c6e9a5c7236ca82a",
+        outcome="6443aa5109cdfd2746fb3b10033b71673277a92a353c192120495ec5c3208a22",
+        counts=[9670, 1350, 195],
+        fracs="c29703b7dde1768d91e9c33adabfc53e820bf0026aafd92d94c56871cbf87e58",
+        active="b2af5b80036184f3197cab49ef8a06130d977416ac4a95a35d1ac50d8e0d08ca",
+        invalidated=[32, 43, 41, 0, 0, 19, 0, 0, 17, 0, 0, 0, 20, 18, 10, 0],
+        n_epochs=22, n_invalidated=200, n_active_final=9, n_active_min=8,
+        frac_min=0.5, frac_max=0.8999999761581421),
+}
+
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core op/s,
 #: dense bf16 tensor-core op/s.
 HBM_BYTES_S = 3.35e12
@@ -169,9 +206,9 @@ def check(cond, what: str) -> None:
         raise SmokeError(what)
 
 
-def digest(a) -> str:
+def digest(a, dtype=np.int32) -> str:
     return hashlib.blake2s(
-        np.ascontiguousarray(a, np.int32).tobytes()).hexdigest()
+        np.ascontiguousarray(a, dtype).tobytes()).hexdigest()
 
 
 def card_line() -> str:
@@ -902,6 +939,7 @@ def path_phase(dev, trace) -> dict:
 
 
 def failure_scenario(head):
+    """het16 with ``FAIL_WINDOWS`` over ``head``'s time span."""
     from repro_torch.sim import Failures
     t_end = float(head.t[-1])
     return dataclasses.replace(
@@ -951,52 +989,185 @@ def failure_phase(dev, trace) -> dict:
             "runs": runs}
 
 
+def autoscale_scenarios(trace) -> dict:
+    """The autoscale phase's two scenarios over the whole ``trace``."""
+    from repro_torch.sim import Autoscale, Scenario
+    return {
+        "kiss4096": Scenario.kiss(
+            4096.0, autoscale=Autoscale(epoch_events=ASC_EPOCH)),
+        "het16_nodes_failures": dataclasses.replace(
+            failure_scenario(trace), autoscale=Autoscale(
+                epoch_events=ASC_EPOCH, spawn_drop_frac=0.02,
+                retire_drop_frac=0.005, init_active=12))}
+
+
+def autoscale_digests(res) -> dict:
+    """What ``GOLDEN_ASC`` holds of an autoscaled run (of either
+    package's ``Result``)."""
+    s = res.summary()
+    return dict(node=digest(res.node), outcome=digest(res.outcome),
+                counts=np.bincount(res.outcome, minlength=3).tolist(),
+                fracs=digest(res.fracs, np.float32),
+                active=digest(res.active, np.uint8),
+                invalidated=np.asarray(res.invalidated).tolist(),
+                **{k: s[k] for k in ("n_epochs", "n_invalidated",
+                                     "n_active_final", "n_active_min",
+                                     "frac_min", "frac_max")})
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str, marks: list, keep=lambda *a: True):
+    """Record CUDA events around every call of ``owner.name`` for which
+    ``keep(*args)`` holds into ``marks``; recording is sync-free, and
+    the times are read after the run."""
+    real = getattr(owner, name)
+
+    def timed(*args):
+        if not keep(*args):
+            return real(*args)
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        out = real(*args)
+        end.record()
+        marks.append((start, end))
+        return out
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def autoscale_phase(dev, trace) -> dict:
+    """Autoscaled runs on the card: both ``autoscale_scenarios`` over the
+    whole trace in every mode, under ``set_sync_debug_mode("error")``,
+    each epoch one chunk of the block runner (its blocks graph replays,
+    its remainder eager) and a re-split between full epochs; held to
+    ``GOLDEN_ASC``.  Prints each run's events/s, capture share, counts
+    and the shares of the wall of the re-splits and of the eager
+    remainder (device time between CUDA events around each re-split and
+    each eager remainder, read after the run)."""
+    from repro_torch._device import sync_point
+    from repro_torch.cluster import engine, graphs
+    from repro_torch.sim import simulate
+    n = len(trace)
+    spans = spans_of(n, ASC_EPOCH)
+    scns = autoscale_scenarios(trace)
+    runs, marks, eager = {}, [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        check(sync_guard_refuses(dev),
+              "sync debug mode did not refuse a host sync")
+        zero_counts()                     # the autoscale path starts here
+        total = RunCounts()
+        # after its capture a runner's ``_advance`` steps only remainders
+        with timed_calls(engine, "_epoch_end", marks), \
+                timed_calls(graphs.BlockRunner, "_advance", eager,
+                            lambda runner, *a: runner.graph is not None):
+            for name, scn in scns.items():
+                for mode in ("gather", "vmap", "fused"):
+                    marks.clear()
+                    eager.clear()
+                    what = f"autoscale {name} mode={mode}"
+                    res, run = timed_run(
+                        what, spans, mode,
+                        lambda: simulate(scn, trace, mode=mode, device=dev))
+                    got = autoscale_digests(res)
+                    check(got == GOLDEN_ASC[name],
+                          f"{what}: {got} != the JAX reference "
+                          f"{GOLDEN_ASC[name]}")
+                    check(all(np.isfinite(v) for v in
+                              res.summary().values()),
+                          f"{what}: non-finite summary value")
+                    with sync_point(dev):
+                        ms = sum(a.elapsed_time(b) for a, b in marks)
+                        eager_ms = sum(a.elapsed_time(b) for a, b in eager)
+                    wall = run["wall_s"]
+                    run.update(resplits=len(marks), resplit_s=ms / 1e3,
+                               resplit_share=ms / 1e3 / wall,
+                               eager_s=eager_ms / 1e3,
+                               eager_share=eager_ms / 1e3 / wall)
+                    runs[f"{name}/{mode}"] = run
+                    print(f"  re-split: {len(marks)} epoch ends, "
+                          f"{ms:.2f} ms on the device = "
+                          f"{100 * run['resplit_share']:.2f}% of the wall; "
+                          f"eager remainder {eager_ms:.2f} ms = "
+                          f"{100 * run['eager_share']:.2f}%; n_active "
+                          f"{res.n_active.min()}-{res.n_active.max()}, "
+                          f"{res.n_invalidated} invalidated", flush=True)
+        counts = total.delta()                # ... and ends here
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(counts["b1_launches"] == 2 * n,
+          f"autoscaled fused runs launched B1 {counts['b1_launches']} "
+          f"times, want {2 * n}")
+    print(f"autoscale: every run matches the JAX reference bitwise; B1 "
+          f"launched {counts['b1_launches']} times", flush=True)
+    return {"launches": counts["b1_launches"], "counts": counts,
+            "runs": runs}
+
+
 def busy_phase(dev, trace) -> dict:
-    """Device busy share over two graph replays (the first
-    ``2 * BLOCK_EVENTS`` events) of the kiss scenario in each mode:
-    summed device time of every kernel and copy the profiler saw, over
-    the host wall time of the run.  The window is short because the
+    """Device busy share and device records an event over two graph
+    replays (the first ``2 * BLOCK_EVENTS`` events) of the kiss scenario,
+    for the static runner and the autoscaled one (an epoch of
+    ``ASC_EPOCH`` events, so the window holds no re-split: the per-event
+    cost of the live mask and the pressure), each in ``gather`` and
+    ``fused``: summed device time of every kernel and copy the profiler
+    saw over the host wall time of the run, and the count of those
+    device records over the events.  The window is short because the
     profiler's post-processing costs ~0.1 s an event.  In ``fused`` the
     profile must also hold B1's ``evict_place_kernel`` at most once an
     event: the launches the runner adds per replay, seen on the device.
     A session that comes back with no kernel record at all (PERF.md §7)
     is taken again, four in all, as ``kernel_ms`` does."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.cluster.graphs import BLOCK_EVENTS
-    from repro_torch.sim import simulate
+    from repro_torch.sim import Autoscale, simulate
     n_events = 2 * BLOCK_EVENTS
-    head, scn = trace.head(n_events), scenarios()["kiss4096"]
+    head, kiss = trace.head(n_events), scenarios()["kiss4096"]
+    flavours = {"static": kiss, "autoscaled": dataclasses.replace(
+        kiss, autoscale=Autoscale(epoch_events=ASC_EPOCH))}
     out = {}
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0.0)
-    for mode in ("gather", "fused"):
-        simulate(scn, head.head(50), mode=mode, device=dev)   # warm-up
-        for attempt in range(4):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                simulate(scn, head, mode=mode, device=dev)
-                wall = time.perf_counter() - t0
-            events = prof.key_averages()
-            if any(dev_us(e) > 0 for e in events):
-                break
-        b1 = sum(e.count for e in events
-                 if any(n in e.key for n in POOL_KERNELS))
-        if mode == "fused":
-            check(1 <= b1 <= n_events,
-                  f"busy fused: {b1} evict_place_kernel records over "
-                  f"{n_events} events: want 1 to {n_events}")
-            out["fused_b1_records"] = b1
-        else:
-            check(b1 == 0, f"busy {mode}: {b1} evict_place_kernel records")
-        top = sorted(events, key=dev_us, reverse=True)[:3]
-        out[mode] = sum(dev_us(e) for e in events) / 1e6 / wall
-        print(f"busy {mode}: device busy {100 * out[mode]:.1f}% of "
-              f"{wall:.2f} s wall over {n_events} events; "
-              f"{b1} evict_place_kernel records; top device "
-              "time: " + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms"
-                                   for e in top), flush=True)
+    for flavour, scn in flavours.items():
+        for mode in ("gather", "fused"):
+            simulate(scn, head.head(50), mode=mode, device=dev)  # warm-up
+            for attempt in range(4):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    simulate(scn, head, mode=mode, device=dev)
+                    wall = time.perf_counter() - t0
+                events = prof.key_averages()
+                if any(dev_us(e) > 0 for e in events):
+                    break
+            what = f"busy {flavour} {mode}"
+            b1 = sum(e.count for e in events
+                     if any(n in e.key for n in POOL_KERNELS))
+            if mode == "fused":
+                check(1 <= b1 <= n_events,
+                      f"{what}: {b1} evict_place_kernel records over "
+                      f"{n_events} events: want 1 to {n_events}")
+            else:
+                check(b1 == 0, f"{what}: {b1} evict_place_kernel records")
+            records = sum(e.count for e in events
+                          if e.device_type == DeviceType.CUDA)
+            top = sorted(events, key=dev_us, reverse=True)[:3]
+            busy = sum(dev_us(e) for e in events) / 1e6 / wall
+            out[f"{flavour}/{mode}"] = dict(
+                busy=busy, device_records_per_event=records / n_events,
+                b1_records=b1)
+            print(f"{what}: device busy {100 * busy:.1f}% of {wall:.2f} s "
+                  f"wall over {n_events} events; {records / n_events:.2f} "
+                  f"device records an event; {b1} evict_place_kernel "
+                  "records; top device time: "
+                  + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms"
+                              for e in top), flush=True)
     return out
 
 
@@ -1475,6 +1646,7 @@ def main() -> int:
     scans = scan_phase(dev)
     path = path_phase(dev, trace)
     failures = failure_phase(dev, trace)
+    autoscale = autoscale_phase(dev, trace)
     busy = busy_phase(dev, trace)
     serving = serving_phase(dev)
     eviction = eviction_phase(dev, serving["sizes"])
@@ -1484,10 +1656,14 @@ def main() -> int:
     entries = [dict(name="pool_step.evict_place", route="cuda",
                     source="src/repro_torch/kernels/csrc/pool_step.cu",
                     replaces="src/repro/kernels/pool_step.py:43",
-                    launches=path["launches"],
-                    launches_failure_path=failures["launches"],
+                    launches=path["launches"] + autoscale["launches"],
+                    launches_by_path=dict(
+                        simulator=path["launches"],
+                        autoscale=autoscale["launches"],
+                        failures=failures["launches"]),
                     cuda_kernels=POOL_KERNELS,
-                    cuda_kernel_launches=path["launches"],
+                    cuda_kernel_launches=(path["launches"]
+                                          + autoscale["launches"]),
                     max_abs_err=max(r["max_abs_err"]
                                     for r in kernels["rows"]),
                     ms=main_row["ms"], plain_ms=main_row["plain_ms"],
@@ -1526,6 +1702,8 @@ def main() -> int:
                       "counts": path["counts"]},
         "failures": {"runs": failures["runs"],
                      "counts": failures["counts"]},
+        "autoscale": {"runs": autoscale["runs"],
+                      "counts": autoscale["counts"]},
         "device_busy_share": busy,
         "serving": {k: serving[k] for k in ("stats", "wall_s", "models",
                                             "peak_gb", "busy")},

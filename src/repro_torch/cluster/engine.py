@@ -44,8 +44,21 @@ reference's donated carry), and the chunk's outputs are read back.
 Uploads and read-backs are the run's only sync points
 (``_device.sync_point``).
 
-Not ported yet: autoscaling (ROADMAP A8), telemetry (A9), chains (A10),
-vertical scaling (A11), sweeps (A12).
+An autoscaled run (``Autoscale``, the reference's
+``_run_autoscale_impl``) is a host loop over epochs of
+``epoch_events``: each epoch's events run on one carry (on the card
+through the block runner, as one chunk; on the CPU through the host
+loop), with the membership mask ``active`` as the step's live mask
+(``up & active`` with failures) and each event adding its pressure
+(misses + 2x drops per routed node and size class, and the drops) to
+the carry.  After a full epoch :func:`_epoch_end` re-splits every KiSS
+node, resizes the pools (:func:`~repro_torch.core.pool.pool_resize`) and
+spawns or retires at most one node, all on the device without a sync,
+and writes the new state back into the carry in place.  A trailing
+partial epoch runs unpadded and ends with no re-split.
+
+Not ported yet: telemetry (ROADMAP A9), chains (A10), vertical scaling
+(A11), sweeps (A12).
 """
 from __future__ import annotations
 
@@ -56,13 +69,13 @@ import torch
 
 from .._device import resolve_device, sync_point
 from ..core import xp
-from ..core.continuum import (ClusterConfig, Failures, cloud_cold_draws,
-                              route_hashes)
-from ..core.pool import (Event, PoolState, _evict_place_lax,
-                         get_step_backend, init_pool, pool_step_batch,
-                         stack_pools)
+from ..core.continuum import (Autoscale, ClusterConfig, Failures,
+                              cloud_cold_draws, route_hashes)
+from ..core.pool import (Event, PoolState, _evict_place_lax, _first_true,
+                         _select, get_step_backend, init_pool, pool_resize,
+                         pool_step_batch, stack_pools)
 from ..core.registry import ROUTING, RouteCtx
-from ..core.types import DROP, PoolConfig, Trace
+from ..core.types import DROP, MISS, PoolConfig, Trace
 from .metrics import ClusterResult, build_result
 
 #: The step formulations, in documentation order.
@@ -231,24 +244,50 @@ def _make_step(routing: torch.Tensor, unified: torch.Tensor,
     return step
 
 
+class Pressure(NamedTuple):
+    """An autoscaled run's per-event state: the membership ``active``
+    bool[N], which is the step's live mask (``up & active`` with
+    failures), and the epoch's pressure, ``press`` f32[N, 2] (misses +
+    2x drops per routed node and size class) and ``dropw`` f32[1] (the
+    drops), to which each event adds in place."""
+
+    active: torch.Tensor
+    press: torch.Tensor
+    dropw: torch.Tensor
+
+
+def _add_pressure(acc: Pressure, node, cls, outcome) -> None:
+    """Add one event's pressure: 1 for a miss, 2 for a drop, at
+    ``(node, cls)``; a drop also adds 1 to ``dropw``.  Whole numbers, so
+    the f32 sums are exact in any order."""
+    drop = (outcome == DROP).to(torch.float32)                  # [1]
+    w = (outcome == MISS).to(torch.float32) + 2.0 * drop
+    acc.press.view(-1).index_add_(0, node * 2 + cls, w)
+    acc.dropw.add_(drop)
+
+
 def _run_events(step, pools: PoolState, inval, events: ClusterEvent, up,
                 recover, node_out: torch.Tensor, outcome_out: torch.Tensor,
-                n_nodes: int, count: int):
+                n_nodes: int, count: int, acc: Pressure | None = None):
     """Events ``[0, count)`` of ``events`` (``[L]`` tensors), one at a
     time, without a host sync.  With failures (``up``/``recover``
     bool[L, N] and ``inval`` i32[N] given) each event first clears the
-    nodes recovering at it.  Writes each event's node and outcome into
-    ``node_out``/``outcome_out`` and returns ``(pools, inval)``; in
-    ``gather`` mode the static path updates ``pools`` in place, else the
-    returned state is new tensors."""
+    nodes recovering at it.  An autoscaled run passes ``acc``: its
+    ``active`` mask joins the live mask and each event adds its pressure.
+    Writes each event's node and outcome into ``node_out``/``outcome_out``
+    and returns ``(pools, inval)``; in ``gather`` mode the static path
+    updates ``pools`` in place, else the returned state is new tensors."""
     for i in range(count):
         ev = ClusterEvent(*(a[i] for a in events))
-        if up is None:
-            pools, node, outcome = step(pools, ev)
-        else:
+        live = None if up is None else up[i]
+        if recover is not None:
             cnt, pools = _invalidate_nodes(pools, recover[i], n_nodes)
             inval = inval + cnt
-            pools, node, outcome = step(pools, ev, up[i])
+        if acc is not None:
+            live = acc.active if live is None else live & acc.active
+        pools, node, outcome = step(pools, ev, live)
+        if acc is not None:
+            _add_pressure(acc, node, ev.cls, outcome)
         node_out[i:i + 1].copy_(node)
         outcome_out[i:i + 1].copy_(outcome)
     return pools, inval
@@ -353,7 +392,203 @@ def _simulate_cluster(cfg: ClusterConfig, trace: Trace, device,
     return result, {"invalidated": inval, "node_up": up}
 
 
-# The reference's three entry points, with its return shapes.
+class AutoscaleInputs(NamedTuple):
+    """The per-config tensors an autoscaled run reads beyond the static
+    run's: the starting split ``frac0`` f32[N], ``node_mb`` f32[N], the
+    f32[5] ``(min_frac, max_frac, gain, spawn_drop_frac,
+    retire_drop_frac)`` (+/-inf thresholds when node scaling is off: the
+    decision runs the same arithmetic and never fires) and the starting
+    membership ``active0`` bool[N]."""
+
+    frac0: torch.Tensor
+    node_mb: torch.Tensor
+    asc: torch.Tensor
+    active0: torch.Tensor
+
+
+def _autoscale_inputs(cfg: ClusterConfig, asc: Autoscale,
+                      device) -> AutoscaleInputs:
+    """The reference's ``_autoscale_inputs``, on ``device``."""
+    n = cfg.n_nodes
+    spawn = asc.spawn_drop_frac if asc.node_scaled else np.inf
+    retire = asc.retire_drop_frac if asc.node_scaled else -np.inf
+    k = asc.init_active if asc.init_active is not None else n
+    f32 = dict(dtype=torch.float32, device=device)
+    return AutoscaleInputs(
+        torch.tensor(cfg.small_frac, **f32), torch.tensor(cfg.node_mb, **f32),
+        torch.tensor([asc.min_frac, asc.max_frac, asc.gain, spawn, retire],
+                     **f32),
+        torch.tensor(np.arange(n) < k, dtype=torch.bool, device=device))
+
+
+def _epoch_end(carry, frac: torch.Tensor, inputs: AutoscaleInputs,
+               unified: torch.Tensor, now: torch.Tensor,
+               n_events: torch.Tensor) -> torch.Tensor:
+    """The autoscaler after a full epoch, on the device without a sync.
+
+    Every KiSS node moves its split ``gain * (p_s - p_l) / (p_s + p_l)``
+    toward its pressured class, clipped to ``[min_frac, max_frac]``; the
+    non-unified pools resize to ``node_mb * frac`` / ``node_mb * (1 -
+    frac)`` at ``now`` (the epoch's last event time); then the drop
+    fraction ``dropw / n_events`` spawns the first inactive node or
+    retires the active node with the fewest MB in use (its residents are
+    invalidated), at most one node, never the last.  The reference's f32
+    operations in its order, as separate ops.  ``carry`` holds ``pools``,
+    ``active``, ``press`` and ``dropw`` and takes the new state with
+    ``commit(pools, active, cnt)``.  Returns the new ``frac`` f32[N]."""
+    n = frac.shape[0]
+    mn, mx, gain, spawn_th, retire_th = inputs.asc.unbind()
+    press, active = carry.press, carry.active
+    ps, pl = press[:, 0], press[:, 1]
+    tot = ps + pl
+    some = tot > 0
+    delta = torch.where(some, gain * (ps - pl) / torch.where(some, tot, 1.0),
+                        0.0)
+    cand = torch.minimum(mx, torch.maximum(frac + delta, mn))
+    frac = torch.where(unified, frac, cand)
+    caps = torch.stack([inputs.node_mb * frac,
+                        inputs.node_mb * (1.0 - frac)], 1).reshape(-1)
+    pools = carry.pools
+    resized = pool_resize(pools, now, caps)
+    kiss = ~unified.unsqueeze(1).expand(n, 2).reshape(-1)        # [2N]
+    pools = PoolState(*(None if o is None else _select(kiss, r, o)
+                        for r, o in zip(resized, pools)))
+    drop_frac = carry.dropw[0] / n_events
+    n_active = active.sum(dtype=torch.int32)
+    can_spawn = (drop_frac > spawn_th) & (n_active < n)
+    can_retire = ~can_spawn & (drop_frac < retire_th) & (n_active > 1)
+    used_n = (pools.capacity - pools.free).view(n, 2).sum(1)
+    ids = torch.arange(n, device=frac.device)
+    spawn = ids == _first_true(~active)
+    retire = ids == torch.where(active, used_n, float("inf")).argmin()
+    new_active = torch.where(can_spawn, active | spawn,
+                             torch.where(can_retire, active & ~retire,
+                                         active))
+    cnt, pools = _invalidate_nodes(pools, retire & can_retire, n)
+    carry.commit(pools, new_active, cnt)
+    return frac
+
+
+class _HostCarry:
+    """The host loop's carry for the epoch loop, with the block
+    runner's interface (``run_chunk``, ``commit``) on tensors that are
+    rebound rather than written in place."""
+
+    def __init__(self, step, pools: PoolState, active: torch.Tensor,
+                 n_nodes: int):
+        self.step, self.pools, self.n_nodes = step, pools, n_nodes
+        dev = active.device
+        self.active = active
+        self.press = torch.zeros((n_nodes, 2), dtype=torch.float32,
+                                 device=dev)
+        self.dropw = torch.zeros(1, dtype=torch.float32, device=dev)
+        self.inval = torch.zeros(n_nodes, dtype=torch.int32, device=dev)
+
+    def run_chunk(self, events, up, recover, node, outcome) -> None:
+        self.pools, self.inval = _run_events(
+            self.step, self.pools, self.inval, events, up, recover, node,
+            outcome, self.n_nodes, node.shape[0],
+            Pressure(self.active, self.press, self.dropw))
+
+    def commit(self, pools, active, cnt) -> None:
+        self.pools, self.active = pools, active
+        self.inval = self.inval + cnt
+
+
+def _epochs(n_events: int, epoch_events: int) -> list[tuple[int, int]]:
+    """``[s, e)`` of each epoch; the last may be partial."""
+    return [(s, min(s + epoch_events, n_events))
+            for s in range(0, n_events, epoch_events)]
+
+
+def _replay_autoscale(cfg: ClusterConfig, asc: Autoscale, trace: Trace,
+                      device, mode: str, failures: Failures | None,
+                      block_events: int | None = None):
+    """Run the autoscaled trace; returns ``(node i32[T], outcome i32[T],
+    fracs f32[E, N], active bool[E, N], invalidated i64[N], node_up
+    bool[T, N] or None)`` on the host.
+
+    A CPU run without ``block_events`` is the host loop; every other run
+    steps each epoch as one chunk of the block runner (on the card, each
+    block of ``BLOCK_EVENTS`` events one graph replay).  The whole trace
+    is uploaded once; between epochs nothing is read back."""
+    from . import graphs
+    n, t_len = cfg.n_nodes, len(trace)
+    failing = failures is not None
+    masks = _failure_masks(failures, trace, n) if failing else None
+    spans = _epochs(t_len, asc.epoch_events)
+    with sync_point(device):
+        pools, routing, unified, cloud = _run_inputs(cfg, device)
+        inputs = _autoscale_inputs(cfg, asc, device)
+        ev = ClusterEvent(*_upload(_host_events(trace, n), 0, t_len, device))
+        up, rec = (_upload(masks, 0, t_len, device) if failing
+                   else (None, None))
+        node = torch.empty(t_len, dtype=torch.int32, device=device)
+        outcome = torch.empty_like(node)
+        fracs = torch.empty((len(spans), n), dtype=torch.float32,
+                            device=device)
+        actives = torch.empty((len(spans), n), dtype=torch.bool,
+                              device=device)
+        n_full = torch.full((), float(asc.epoch_events),
+                            dtype=torch.float32, device=device)
+        if device.type == "cpu" and block_events is None:
+            carry = _HostCarry(
+                _make_step(routing, unified, cloud, n, mode), pools,
+                inputs.active0, n)
+        else:
+            carry = graphs.block_runner(device, n, cfg.max_slots, mode,
+                                        failing, block_events,
+                                        autoscaled=True)
+            carry.load(pools, routing, unified, cloud, inputs.active0)
+    frac = inputs.frac0
+    for k, (s, e) in enumerate(spans):
+        carry.press.zero_()
+        carry.dropw.zero_()
+        carry.run_chunk(ClusterEvent(*(a[s:e] for a in ev)),
+                        None if up is None else up[s:e],
+                        None if rec is None else rec[s:e],
+                        node[s:e], outcome[s:e])
+        if e - s == asc.epoch_events:
+            frac = _epoch_end(carry, frac, inputs, unified,
+                              ev.t[s:e].amax(), n_full)
+        fracs[k].copy_(frac)
+        actives[k].copy_(carry.active)
+    with sync_point(device):
+        out = (node.cpu().numpy(), outcome.cpu().numpy(),
+               fracs.cpu().numpy(), actives.cpu().numpy(),
+               carry.inval.cpu().numpy().astype(np.int64))
+    return out + (masks[0] if failing else None,)
+
+
+def _autoscale_extras(actives, inval, up, failures) -> dict:
+    return {"invalidated": np.asarray(inval, np.int64),
+            "node_up": up if failures is not None else None,
+            "active": np.asarray(actives, bool)}
+
+
+def _simulate_cluster_autoscale(cfg: ClusterConfig, asc: Autoscale,
+                                trace: Trace, device, rng_seed: int = 0,
+                                mode: str = "gather",
+                                failures: Failures | None = None,
+                                block_events: int | None = None):
+    """One autoscaled run on ``device`` (``None`` is the CUDA device),
+    with or without ``failures``: ``(ClusterResult, fracs f32[E, N],
+    extras)``, where ``extras`` holds the membership trajectory
+    ``active`` bool[E, N], ``invalidated`` i64[N] (recoveries and
+    retirements) and ``node_up`` (``None`` without failures).
+    ``block_events`` sends a CPU run through the block runner with that
+    block length (on the card it overrides ``BLOCK_EVENTS``)."""
+    check_step_mode(mode)
+    device = resolve_device(device)
+    node, outcome, fracs, actives, inval, up = _replay_autoscale(
+        cfg, asc, trace, device, mode, failures, block_events)
+    result = build_result(cfg, trace, node, outcome,
+                          cloud_cold_draws(len(trace), cfg.cloud_cold_prob,
+                                           rng_seed))
+    return result, fracs, _autoscale_extras(actives, inval, up, failures)
+
+
+# The reference's four entry points, with its return shapes.
 
 def _simulate_cluster_torch(cfg, trace, device, rng_seed=0,
                             mode="gather") -> ClusterResult:
@@ -372,3 +607,9 @@ def _simulate_cluster_chunked_torch(cfg, trace, device, rng_seed=0,
     result, extras = _simulate_cluster(cfg, trace, device, rng_seed, mode,
                                        chunk_events, failures, block_events)
     return result if failures is None else (result, extras)
+
+
+def _simulate_cluster_autoscale_torch(cfg, asc, trace, device, rng_seed=0,
+                                      mode="gather", failures=None):
+    return _simulate_cluster_autoscale(cfg, asc, trace, device, rng_seed,
+                                       mode, failures)

@@ -22,6 +22,16 @@ run through the same step eagerly on the same carry.  On the CPU the
 block runs eagerly: the same code, only the capture differs, so the CPU
 tests cover the block partition and the carry.
 
+The autoscaled flavour (``autoscaled=True``, for the engine's epoch
+loop) adds the membership ``active`` bool[N], which every event reads
+as its live mask (``up & active`` with failures), and the epoch's
+pressure ``press`` f32[N, 2] and ``dropw`` f32[1], which every event
+adds to; its invalidation counts also take retirements.  Between epochs
+the engine zeroes the pressure in place and, after the re-split, writes
+the resized pools, the membership and the retirement's count back into
+the same storage (:meth:`BlockRunner.commit`), so the next replay reads
+them.
+
 Runners are cached like ``jax.jit``'s programs, keyed on every Python
 value the captured step closes over (:func:`block_runner`).  Warm-up and
 capture happen when an entry is made, on its own tensors, before any
@@ -38,7 +48,8 @@ import torch
 from ..core.continuum import ClusterConfig
 from ..core.pool import get_step_backend
 from ..core.registry import REPLACEMENT, ROUTING
-from .engine import (ClusterEvent, _make_step, _run_events, init_cluster)
+from .engine import (ClusterEvent, Pressure, _make_step, _run_events,
+                     init_cluster)
 
 #: Events one graph replay steps.  Replay time per event barely depends
 #: on it (the device runs the same kernels; a block's copies and launch
@@ -74,12 +85,13 @@ class BlockRunner:
     time uses a runner."""
 
     def __init__(self, device: torch.device, n_nodes: int, max_slots: int,
-                 mode: str, failing: bool, block: int):
+                 mode: str, failing: bool, block: int,
+                 autoscaled: bool = False):
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
         n, k, dev = n_nodes, block, device
         self.device, self.n_nodes, self.block = dev, n, k
-        self.failing = failing
+        self.failing, self.autoscaled = failing, autoscaled
         self.routing = torch.zeros(1, dtype=torch.int64, device=dev)
         self.unified = torch.zeros(n, dtype=torch.bool, device=dev)
         self.cloud = torch.zeros(2, dtype=torch.float32, device=dev)
@@ -87,6 +99,9 @@ class BlockRunner:
             node_mb=(1.0,) * n, small_frac=(0.5,) * n, unified=(False,) * n,
             max_slots=max_slots), dev)
         self.inval = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.active = torch.ones(n, dtype=torch.bool, device=dev)
+        self.press = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+        self.dropw = torch.zeros(1, dtype=torch.float32, device=dev)
         f32, i32 = torch.float32, torch.int32
         self.events = ClusterEvent(*(
             torch.zeros(k, dtype=dt, device=dev)
@@ -107,13 +122,19 @@ class BlockRunner:
         ``node``/``outcome``, and leave the final state in the carry."""
         if not self.failing:
             up = recover = None
+        acc = (Pressure(self.active, self.press, self.dropw)
+               if self.autoscaled else None)
         pools, inval = _run_events(
-            self.step, self.pools, self.inval if self.failing else None,
-            events, up, recover, node, outcome, self.n_nodes, count)
+            self.step, self.pools, self.inval, events, up, recover, node,
+            outcome, self.n_nodes, count, acc)
+        self._store(pools, inval)
+
+    def _store(self, pools, inval) -> None:
+        """Copy a new state into the carry, in place."""
         for a, b in zip(self.pools, pools):
             if a is not None and b is not a:
                 a.copy_(b)
-        if self.failing:
+        if inval is not self.inval:
             self.inval.copy_(inval)
 
     def _buffers(self):
@@ -144,8 +165,9 @@ class BlockRunner:
         STATS["captures"] += 1
         STATS["capture_s"] += time.perf_counter() - t0
 
-    def load(self, pools, routing, unified, cloud) -> None:
-        """Copy a run's initial state and inputs into the fixed tensors."""
+    def load(self, pools, routing, unified, cloud, active=None) -> None:
+        """Copy a run's initial state and inputs into the fixed tensors
+        (an autoscaled run also gives its starting membership)."""
         for a, b in zip(self.pools, pools):
             if a is not None:
                 a.copy_(b)
@@ -153,6 +175,15 @@ class BlockRunner:
         self.unified.copy_(unified)
         self.cloud.copy_(cloud)
         self.inval.zero_()
+        if self.autoscaled:
+            self.active.copy_(active)
+
+    def commit(self, pools, active, cnt) -> None:
+        """Take the state the autoscaler left between two epochs: the
+        resized pools, the new membership and the residents a retirement
+        killed, written into the carry in place for the next replay."""
+        self._store(pools, self.inval + cnt)
+        self.active.copy_(active)
 
     def _run_block(self) -> None:
         if self.graph is None:
@@ -187,23 +218,27 @@ class BlockRunner:
 
 
 @functools.lru_cache(maxsize=CACHE_SIZE)
-def _cached(device, n_nodes, max_slots, mode, failing, block,
+def _cached(device, n_nodes, max_slots, mode, failing, block, autoscaled,
             routing_specs, replacement_specs) -> BlockRunner:
-    return BlockRunner(device, n_nodes, max_slots, mode, failing, block)
+    return BlockRunner(device, n_nodes, max_slots, mode, failing, block,
+                       autoscaled)
 
 
 def block_runner(device, n_nodes: int, max_slots: int, mode: str,
-                 failing: bool, block: int | None = None) -> BlockRunner:
+                 failing: bool, block: int | None = None,
+                 autoscaled: bool = False) -> BlockRunner:
     """The cached runner for this cluster shape and step mode.
 
     The key holds every Python value the captured step closes over: the
     device, ``n_nodes`` and ``max_slots`` (the shapes), ``mode`` (which
     names the step backend), whether failures are on, the block length,
-    and the registered routing and replacement policies (the step runs
+    whether the run is autoscaled (the live mask and the pressure), and
+    the registered routing and replacement policies (the step runs
     every registered routing body and ``where``-chains every replacement
     priority, so registering a policy makes a new entry).  Everything
     else a run differs in (routing code, ``unified``, ``cloud``,
-    capacities, policy codes) is data in the runner's fixed tensors."""
+    capacities, policy codes, membership) is data in the runner's fixed
+    tensors."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -211,4 +246,4 @@ def block_runner(device, n_nodes: int, max_slots: int, mode: str,
         get_step_backend(mode)          # unknown names fail here
     return _cached(device, n_nodes, max_slots, mode, bool(failing),
                    BLOCK_EVENTS if block is None else int(block),
-                   ROUTING.specs(), REPLACEMENT.specs())
+                   bool(autoscaled), ROUTING.specs(), REPLACEMENT.specs())

@@ -5,11 +5,11 @@ from .types import (DROP, HIT, LARGE, MISS, SMALL, ClassMetrics, KissConfig,
 from .registry import (REPLACEMENT, ROUTING, PolicySpec, RouteCtx,
                        SlotStats, register_replacement, register_routing,
                        replacement_policies, routing_policies)
-from .continuum import (ClusterConfig, ContinuumResult, Failures,
-                        RoutingPolicy)
+from .continuum import (Autoscale, ClusterConfig, ContinuumResult,
+                        Failures, RoutingPolicy)
 
 __all__ = [
-    "DROP", "HIT", "LARGE", "MISS", "SMALL", "ClassMetrics",
+    "Autoscale", "DROP", "HIT", "LARGE", "MISS", "SMALL", "ClassMetrics",
     "ClusterConfig", "ContinuumResult", "Failures", "KissConfig", "Policy",
     "PolicySpec", "PoolConfig", "REPLACEMENT", "ROUTING", "RouteCtx", "RoutingPolicy",
     "SimResult", "SlotStats", "Trace", "register_replacement",

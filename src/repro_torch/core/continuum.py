@@ -3,10 +3,11 @@
 The parts of ``repro.core.continuum`` the static cluster path needs,
 copied byte for byte because they are shared verbatim with the
 reference: ``ClusterConfig`` (with ``pool_caps``), the routing hashes,
-the pre-drawn cloud cold-start coins, the end-to-end pricing and the
+the pre-drawn cloud cold-start coins, the end-to-end pricing, the
 failure schedule (``Failures``, compiled on the host into per-event
-masks).  The numpy oracle (``cluster_outcomes_ref``), autoscaling and
-chain plans are not ported yet (ROADMAP A8, A10, A14).
+masks) and the autoscaler's knob (``Autoscale``).  The numpy oracle
+(``cluster_outcomes_ref``) and chain plans are not ported yet (ROADMAP
+A10, A14).
 """
 from __future__ import annotations
 
@@ -34,6 +35,81 @@ if [r.name.lower() for r in RoutingPolicy] != ROUTING.names()[:4]:
     raise RuntimeError("RoutingPolicy drifted from the routing registry")
 if [p.name.lower() for p in Policy] != REPLACEMENT.names()[:3]:
     raise RuntimeError("Policy drifted from the replacement registry")
+
+
+@dataclasses.dataclass(frozen=True)
+class Autoscale:
+    """Per-epoch adaptive re-splitting of every KiSS node's pools.
+
+    Every ``epoch_events`` invocations, each non-unified node re-tunes its
+    small/large split from the *observed per-class pressure* on that node
+    (misses + 2x drops), moving the split ``gain`` of the way toward the
+    pressured class and clipping to ``[min_frac, max_frac]``.  Shrinking a
+    pool evicts lowest-priority idle containers; busy containers are never
+    killed (the pool temporarily runs a negative free balance).
+
+    A trailing partial epoch never completes, so it triggers no re-split
+    (the port runs it unpadded; the reference pads it with guaranteed-drop
+    events that this rule keeps out of the pressure signal).
+
+    **Node add/remove** (``spawn_drop_frac`` set): the autoscaler also
+    carries a per-node *active* mask.  A full epoch whose cluster-wide
+    drop fraction exceeds ``spawn_drop_frac`` spawns the lowest-index
+    inactive node (empty pools — it joins cold); one whose drop fraction
+    falls below ``retire_drop_frac`` retires the emptiest active node
+    (lowest resident MB; its residents are invalidated, counted in the
+    ``invalidated`` metric).  At most one node moves per epoch and the
+    cluster never shrinks below one active node.  ``init_active`` starts
+    only the first k nodes (default: all).  Inactive nodes are invisible
+    to routing (``RouteCtx.node_up``) and requests a mask-blind policy
+    still sends there drop to the cloud.
+
+    Frozen and hashable: rides inside :class:`repro_torch.sim.Scenario`;
+    ``min_frac``/``max_frac``/``gain`` and the spawn/retire thresholds
+    reach the engine as data (a device tensor), not as Python constants.
+    """
+
+    epoch_events: int = 512
+    min_frac: float = 0.5
+    max_frac: float = 0.9
+    gain: float = 0.15   # fraction step per epoch toward the pressured class
+    # -- node add/remove (None = fixed membership) -------------------------
+    spawn_drop_frac: float | None = None  # spawn when epoch drop frac >
+    retire_drop_frac: float = 0.0         # retire emptiest when drop frac <
+    init_active: int | None = None        # start with the first k nodes only
+
+    def __post_init__(self):
+        if int(self.epoch_events) != self.epoch_events or \
+                self.epoch_events < 1:
+            raise ValueError("epoch_events must be a positive integer")
+        object.__setattr__(self, "epoch_events", int(self.epoch_events))
+        if not 0.0 < self.min_frac <= self.max_frac < 1.0:
+            raise ValueError("need 0 < min_frac <= max_frac < 1")
+        if self.gain < 0.0:
+            raise ValueError("gain must be >= 0")
+        if self.spawn_drop_frac is None:
+            if self.retire_drop_frac != 0.0 or self.init_active is not None:
+                raise ValueError(
+                    "retire_drop_frac/init_active require node scaling — "
+                    "set spawn_drop_frac to enable it")
+        else:
+            if not 0.0 < self.spawn_drop_frac <= 1.0:
+                raise ValueError("spawn_drop_frac must be in (0, 1]")
+            if not 0.0 <= self.retire_drop_frac < self.spawn_drop_frac:
+                raise ValueError(
+                    "need 0 <= retire_drop_frac < spawn_drop_frac")
+            if self.init_active is not None:
+                if int(self.init_active) != self.init_active or \
+                        self.init_active < 1:
+                    raise ValueError("init_active must be a positive "
+                                     "integer (or None for all nodes)")
+                object.__setattr__(self, "init_active",
+                                   int(self.init_active))
+
+    @property
+    def node_scaled(self) -> bool:
+        """Whether this autoscaler also spawns/retires whole nodes."""
+        return self.spawn_drop_frac is not None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,9 +23,10 @@ The miss path's evict-and-place decision goes through a registered
 the sort composite under the reference's name, and ``"fused"`` is the
 hand-written CUDA kernel of ``repro_torch.kernels.pool_step``.
 
-The reference's seven vertical-scaling fields stay on the state as
-``None`` defaults; the resize path itself and ``pool_resize`` are not
-ported yet (ROADMAP A11, A8).
+:func:`pool_resize` changes the capacities between the autoscaler's
+epochs, evicting through the same ``(priority, seq)`` prefix.  The
+reference's seven vertical-scaling fields stay on the state as ``None``
+defaults; the resize path itself is not ported yet (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -157,6 +158,14 @@ def _gd(clock, freq, cold_cost, size):
     return clock + freq * cold_cost / torch.clamp_min(size, 1e-6)
 
 
+def _priority(p: PoolState) -> torch.Tensor:
+    """Eviction priority f32[P, S] of every slot (lower = evicted
+    first), from the replacement registry with the policy code as data."""
+    stats = SlotStats(last_use=p.last_use, freq=p.freq, gd_pri=p.gd_pri,
+                      size=p.size, busy_until=p.busy_until)
+    return replacement_priority(xp, p.policy.unsqueeze(-1), stats)
+
+
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
     """Index of the first True along the last axis (0 when none), as
     ``jnp.argmax`` of a bool array."""
@@ -278,10 +287,7 @@ def pool_step_batch(p: PoolState, ev: Event, evict_place):
     # ---- MISS branch: the backend evicts the (priority, seq)-prefix,
     # then the new container goes into the first empty slot ------------
     deficit = ev.size - p.free                       # [P]
-    stats = SlotStats(last_use=p.last_use, freq=p.freq, gd_pri=p.gd_pri,
-                      size=p.size, busy_until=p.busy_until)
-    pri = torch.where(
-        idle, replacement_priority(xp, p.policy.unsqueeze(-1), stats), _INF)
+    pri = torch.where(idle, _priority(p), _INF)
     evict, freed, ins, avail, empty_exists = evict_place(
         pri, p.seq, p.size, idle, p.valid, deficit)
 
@@ -331,3 +337,23 @@ def pool_step(p: PoolState, ev: Event):
     new, outcome = pool_step_batch(one, ev, _evict_place_lax)
     return (PoolState(*(None if a is None else a.squeeze(0) for a in new)),
             outcome.squeeze(0))
+
+
+def pool_resize(p: PoolState, now: torch.Tensor,
+                new_capacity: torch.Tensor) -> PoolState:
+    """Change every stacked pool's capacity between autoscaler epochs
+    (the reference's ``pool_resize``, vmapped over the pool axis).
+
+    Evicts the lowest-``(priority, seq)`` *idle* prefix until the new
+    capacity (f32[P]) is respected; busy containers are never killed, so
+    a hard shrink can leave ``free`` negative, which blocks admissions
+    until they drain.  Unlike the miss path, the eviction does not move
+    the GreedyDual clock.  ``now`` (a 0-d tensor) is the epoch's last
+    event time."""
+    _no_resize(p)
+    used = torch.where(p.valid, p.size, 0.0).sum(-1)          # [P]
+    idle = p.valid & (p.busy_until <= now)
+    evict, freed = _evict_prefix(torch.where(idle, _priority(p), _INF),
+                                 p.seq, p.size, idle, used - new_capacity)
+    return p._replace(valid=p.valid & ~evict, capacity=new_capacity,
+                      free=new_capacity - (used - freed))

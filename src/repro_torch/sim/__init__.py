@@ -16,7 +16,7 @@ reference registers unchanged with ``register_routing`` /
 ``cost_model`` and ``slack_aware`` (routing codes 4 and 5), as the
 reference's ``repro.sim`` does.
 """
-from ..core.continuum import Failures
+from ..core.continuum import Autoscale, Failures
 from ..core.registry import (REPLACEMENT, ROUTING, PolicySpec, RouteCtx,
                              SlotStats, register_replacement,
                              register_routing, replacement_policies,
@@ -27,7 +27,7 @@ from .scenario import Scenario
 from . import policies  # registers cost_model, slack_aware  # noqa: F401
 
 __all__ = [
-    "Failures", "REPLACEMENT", "ROUTING", "PolicySpec", "Result", "RouteCtx",
+    "Autoscale", "Failures", "REPLACEMENT", "ROUTING", "PolicySpec", "Result", "RouteCtx",
     "SUMMARY_KEYS", "Scenario", "SlotStats", "register_replacement",
     "register_routing", "replacement_policies", "routing_policies",
     "simulate", "trace_fingerprint",

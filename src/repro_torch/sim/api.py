@@ -6,10 +6,10 @@
 mode is one of ``STEP_MODES`` (``"gather"``, ``"vmap"``, ``"fused"``),
 all bitwise equal; ``"fused"`` runs the hand-written CUDA kernel of
 ``repro_torch.kernels.pool_step`` on a CUDA device and its plain torch
-version on the CPU.  A scenario with ``failures`` and a run with
-``chunk_events`` give bitwise the reference's results.  Not ported
-yet: ``sweep`` (ROADMAP A12) and the numpy oracle ``engine="ref"``
-(A14).
+version on the CPU.  A scenario with ``failures`` or ``autoscale``
+and a run with ``chunk_events`` give bitwise the reference's results.
+Not ported yet: ``sweep`` (ROADMAP A12) and the numpy oracle
+``engine="ref"`` (A14).
 """
 from __future__ import annotations
 
@@ -18,8 +18,8 @@ import hashlib
 import numpy as np
 
 from .._device import resolve_device
-from ..cluster.engine import (_simulate_cluster, check_chunk_events,
-                              check_step_mode)
+from ..cluster.engine import (_simulate_cluster, _simulate_cluster_autoscale,
+                              check_chunk_events, check_step_mode)
 from ..core.types import Trace
 from .result import Result
 from .scenario import Scenario
@@ -55,8 +55,11 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
     monolithic) splits the trace into chunks that are uploaded and read
     back one at a time, with the pool state carried from chunk to chunk:
     bitwise the monolithic results, with device memory bounded by one
-    chunk.  A scenario with ``failures`` also fills ``Result.node_up``
-    and ``Result.invalidated``.  ``device`` is where the run happens:
+    chunk; it does not compose with an autoscaled scenario
+    (``ValueError``, as in the reference).  A scenario with ``failures``
+    also fills ``Result.node_up`` and ``Result.invalidated``; an
+    autoscaled one fills the epoch trajectories ``Result.fracs``,
+    ``active`` and ``epoch_t`` (and ``invalidated``: retirements).  ``device`` is where the run happens:
     ``None`` means ``"cuda"``."""
     if engine == "ref":
         raise NotImplementedError(
@@ -66,13 +69,38 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
         raise ValueError(f"engine must be one of {_ENGINES}, got {engine!r}")
     check_step_mode(mode)
     chunk = check_chunk_events(chunk_events)
+    asc = scenario.autoscale
+    if chunk is not None and asc is not None:
+        raise ValueError(
+            "chunk_events does not compose with autoscale: an autoscaled "
+            "run already steps one epoch at a time; drop chunk_events or "
+            "the Autoscale")
     dev = resolve_device(device)
-    raw, extras = _simulate_cluster(scenario.to_cluster_config(), trace,
-                                    dev, rng_seed, mode, chunk,
-                                    scenario.failures)
+    cfg = scenario.to_cluster_config()
+    fracs = ep_t = None
+    if asc is None:
+        raw, extras = _simulate_cluster(cfg, trace, dev, rng_seed, mode,
+                                        chunk, scenario.failures)
+    else:
+        raw, fracs, extras = _simulate_cluster_autoscale(
+            cfg, asc, trace, dev, rng_seed, mode, scenario.failures)
+        ep_t = _epoch_times(trace, asc.epoch_events)
     info = {"engine": engine, "mode": mode, "chunk_events": chunk,
             "devices": None, "device": str(dev), "rng_seed": rng_seed,
             "trace_fingerprint": trace_fingerprint(trace)}
-    return Result(scenario=scenario, raw=raw,
+    return Result(scenario=scenario, raw=raw, epoch_fracs=fracs,
+                  epoch_active=extras.get("active"),
                   node_up=extras.get("node_up"),
-                  invalidated=extras.get("invalidated"), run_info=info)
+                  invalidated=extras.get("invalidated"), run_info=info,
+                  epoch_t=ep_t)
+
+
+def _epoch_times(trace: Trace, epoch_events: int) -> np.ndarray | None:
+    """f32[E] time of each epoch's last event (``None`` for an empty
+    trace), as the reference's ``_wrap`` computes it."""
+    if not len(trace):
+        return None
+    n_ep = -(-len(trace) // epoch_events)
+    t = np.asarray(trace.t, np.float32)
+    return t[np.minimum((np.arange(n_ep) + 1) * epoch_events - 1,
+                        len(trace) - 1)]

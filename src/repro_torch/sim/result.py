@@ -2,9 +2,9 @@
 ``repro.sim.result``).
 
 ``summary()`` returns every key of the reference's :data:`SUMMARY_KEYS`,
-in order.  The keys of features the port does not run yet (autoscaling,
-telemetry, chains, vertical scaling) take the inert values the reference
-reports when the feature is off.
+in order.  The keys of features the port does not run yet (telemetry,
+chains, vertical scaling) take the inert values the reference reports
+when the feature is off.
 """
 from __future__ import annotations
 
@@ -42,19 +42,29 @@ class Result:
     end.  ``node``/``outcome`` are i32[T] (routed node; 0 hit / 1 miss /
     2 drop->cloud), ``latencies`` f64[T] end-to-end seconds and
     ``per_node`` f64[N, 2, 4] (hits, misses, drops, edge exec time) per
-    (node, size class)."""
+    (node, size class); ``fracs`` f32[E, N] and ``active`` bool[E, N]
+    are the autoscaler's per-epoch split and membership (one static row
+    otherwise)."""
 
     scenario: Scenario
     raw: ClusterResult
+    #: f32[E, N] per-epoch small-pool fractions from the autoscaler
+    #: (``None`` for static scenarios: ``fracs`` derives the one-row view)
+    epoch_fracs: np.ndarray | None = None
+    #: bool[E, N] per-epoch membership from the node autoscaler (``None``
+    #: for static scenarios: ``active`` derives the one-row view)
+    epoch_active: np.ndarray | None = None
     #: bool[T, N] per-event live mask (``None`` without a failure
     #: schedule)
     node_up: np.ndarray | None = None
-    #: i64[N] residents invalidated per node by failure recovery (``None``
-    #: without a failure schedule; the views report zeros)
+    #: i64[N] residents invalidated per node by failure recovery or
+    #: retirement (``None`` = neither ran; the views report zeros)
     invalidated: np.ndarray | None = None
     #: how this run was executed: engine, mode, chunking, device, rng
     #: seed and the trace fingerprint
     run_info: dict | None = None
+    #: f32[E] event time at each epoch boundary (autoscaled runs only)
+    epoch_t: np.ndarray | None = None
 
     # -- per-event arrays --------------------------------------------------
     @property
@@ -78,8 +88,26 @@ class Result:
 
     @property
     def fracs(self) -> np.ndarray:
-        """f32[1, N]: a static scenario is one epoch at ``small_frac``."""
+        """f32[E, N] small-pool fraction in effect after each epoch: the
+        autoscaler's trajectory (unified nodes pinned at their start), or
+        for a static scenario one row at ``small_frac``."""
+        if self.epoch_fracs is not None and len(self.epoch_fracs):
+            return self.epoch_fracs
         return np.asarray([self.scenario.small_frac], np.float32)
+
+    @property
+    def active(self) -> np.ndarray:
+        """bool[E, N] cluster membership after each epoch: the node
+        autoscaler's trajectory, or one all-True row without one
+        (membership is apart from failures, which ``node_up`` tracks)."""
+        if self.epoch_active is not None and len(self.epoch_active):
+            return self.epoch_active
+        return np.ones((1, self.scenario.n_nodes), bool)
+
+    @property
+    def n_active(self) -> np.ndarray:
+        """i64[E] active-node count per epoch."""
+        return self.active.sum(axis=1)
 
     @property
     def node_downtime_pct(self) -> np.ndarray:
@@ -153,8 +181,8 @@ class Result:
             "frac_max": float(fr.max()),
             "downtime_pct": float(self.node_downtime_pct.mean()),
             "n_invalidated": self.n_invalidated,
-            "n_active_final": n,
-            "n_active_min": n,
+            "n_active_final": int(self.active[-1].sum()),
+            "n_active_min": int(self.n_active.min()),
             "n_windows": 0,
             "n_chains": 0,
             "chain_latency_mean_s": 0.0,

@@ -9,11 +9,13 @@ the same in both packages::
     Scenario.cluster((1024.0,) * 8 + (6144.0,) * 4,
                      routing="size_aware")     # heterogeneous cluster
 
-The port runs static and failure-injected scenarios (``failures=`` a
+The port runs static, failure-injected (``failures=`` a
 :class:`~repro_torch.core.continuum.Failures` or an iterable of
-``(t_down, t_up, node)`` windows); a scenario that sets ``autoscale``,
-``telemetry``, ``chains`` or ``resize`` raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+``(t_down, t_up, node)`` windows) and autoscaled scenarios
+(``autoscale=`` an :class:`~repro_torch.core.continuum.Autoscale` or a
+dict of its arguments); a scenario that sets ``telemetry``, ``chains``
+or ``resize`` raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -23,13 +25,12 @@ from typing import Sequence
 
 import numpy as np
 
-from ..core.continuum import ClusterConfig, Failures
+from ..core.continuum import Autoscale, ClusterConfig, Failures
 from ..core.registry import REPLACEMENT, ROUTING
 
 #: Scenario knobs of the reference that the port does not run yet, with
 #: the ROADMAP item that ports each.
-NOT_PORTED = {"autoscale": "A8", "telemetry": "A9", "chains": "A10",
-              "resize": "A11"}
+NOT_PORTED = {"telemetry": "A9", "chains": "A10", "resize": "A11"}
 
 
 def _is_seq(x) -> bool:
@@ -114,6 +115,31 @@ class Scenario:
                     f"failures references node {f.max_node} but the "
                     f"scenario has {n} nodes")
             object.__setattr__(self, "failures", f)
+        if self.autoscale is not None:
+            asc = self.autoscale
+            if isinstance(asc, dict):
+                asc = Autoscale(**asc)
+            if not isinstance(asc, Autoscale):
+                raise ValueError("autoscale must be an Autoscale, a kwargs "
+                                 f"dict, or None, got {asc!r}")
+            # an all-unified cluster has no split to re-tune, but node
+            # add/remove is still meaningful there
+            if all(self.unified) and not asc.node_scaled:
+                raise ValueError(
+                    "autoscale needs at least one KiSS node to re-split")
+            if asc.init_active is not None and asc.init_active > n:
+                raise ValueError(
+                    f"init_active={asc.init_active} exceeds the "
+                    f"scenario's {n} nodes")
+            # a start outside the bounds would be silently clamped (and
+            # pools resized) at the first epoch: surface it here instead
+            if any(not asc.min_frac <= f <= asc.max_frac
+                   for f, u in zip(self.small_frac, self.unified) if not u):
+                raise ValueError(
+                    "small_frac of every KiSS node must start inside "
+                    f"[min_frac, max_frac] = [{asc.min_frac}, "
+                    f"{asc.max_frac}]")
+            object.__setattr__(self, "autoscale", asc)
         # canonicalize policies to registered names (raises on unknown)
         object.__setattr__(
             self, "replacement",
@@ -170,9 +196,10 @@ class Scenario:
             return self.name
         kind = ("baseline" if all(self.unified)
                 else "kiss" if self.n_nodes == 1 else "cluster")
+        asc = "-autoscaled" if self.autoscale is not None else ""
         fail = "-failures" if self.failures is not None else ""
         return (f"{kind}-{self.n_nodes}n-{self.routing}"
-                f"-{self.replacement}{fail}")
+                f"-{self.replacement}{asc}{fail}")
 
     def to_cluster_config(self) -> ClusterConfig:
         """The engine-level config."""

@@ -193,8 +193,9 @@ def test_golden_digests_are_the_references(ref):
 # ---------------------------------------------------------------------------
 
 def test_imports_without_jax_or_repro():
-    """With ``jax`` unimportable, the port imports, runs a tiny fused
-    simulate on the CPU, and never loads a ``repro`` module."""
+    """With ``jax`` unimportable, the port imports, runs tiny fused
+    static, failure-injected and autoscaled simulates on the CPU, and
+    never loads a ``repro`` module."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None          # any import of jax now fails
@@ -211,6 +212,11 @@ def test_imports_without_jax_or_repro():
                                    failures=((10.0, 30.0, 0),)), tr,
                      mode="fused", chunk_events=50, device="cpu")
         assert f.summary()["downtime_pct"] > 0
+        a = simulate(Scenario.cluster((512.0, 1024.0), max_slots=16,
+                                      autoscale={"epoch_events": 40,
+                                                 "spawn_drop_frac": 0.05}),
+                     tr, mode="fused", device="cpu")
+        assert a.fracs.shape == (-(-len(tr) // 40), 2)
         bad = sorted(m for m, v in sys.modules.items() if v is not None
                      and m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
