@@ -63,10 +63,20 @@ Phases, each printing its own lines:
    and spawning or retiring nodes) in every mode, each epoch one chunk
    of the block runner, held to ``GOLDEN_ASC`` (pinned by
    ``tests/test_torch_autoscale.py``), with the re-split's share of the
-   wall from CUDA events around each one; then the device's busy share
-   and device records an event over two graph replays, for the static
-   and the autoscaled runner, with B1's kernel records in ``fused`` seen
-   at most once an event;
+   wall from CUDA events around each one; then telemetry and chains
+   (``telemetry_phase``): the telemetry benchmark's 4-node cluster over
+   the whole trace with windows of ``TEL_WINDOW`` events in every mode,
+   monolithic and in chunks of ``TEL_CHUNK``, and without telemetry (the
+   outcomes must not move; its overhead is printed), het16 autoscaled
+   with windows, and the chain benchmark's scenarios
+   (``chain_scenarios``, ``slack_aware`` and ``size_aware``) on its
+   stored trace in every mode, held to ``GOLDEN_TEL`` and
+   ``GOLDEN_CHAIN`` (every window array, every per-chain array, the
+   summary; pinned by ``tests/test_torch_{telemetry,chains}.py``); then
+   the device's busy share and device records an event over two graph
+   replays, for the static and the autoscaled runner and for telemetry
+   and chains on, with B1's kernel records in ``fused`` seen at most
+   once an event;
 7. the serving path at full width: the four models of
    ``launch.serve.default_registry(4)``, starcoder2-3b, rwkv6-7b,
    zamba2-1.2b and glm4-9b (random bf16 weights from a seed), behind one
@@ -184,6 +194,118 @@ GOLDEN_ASC = {
         invalidated=[32, 43, 41, 0, 0, 19, 0, 0, 17, 0, 0, 0, 20, 18, 10, 0],
         n_epochs=22, n_invalidated=200, n_active_final=9, n_active_min=8,
         frac_min=0.5, frac_max=0.8999999761581421),
+}
+
+#: The telemetry and chain phase, with the repo's own benchmarks'
+#: settings (``benchmarks/telemetry.py``, ``benchmarks/chains.py``):
+#: ``telemetry_scenarios`` over the whole quickstart trace (the 4-node
+#: size-aware cluster with windows of ``TEL_WINDOW`` events, monolithic
+#: and in chunks of ``TEL_CHUNK``, which does not divide the window; and
+#: ``GOLDEN_ASC``'s het16 with node scaling and the outages, with windows
+#: of ``CHAIN_WINDOW`` events: retirements' invalidations), and
+#: ``chain_scenarios`` over the chain benchmark's trace
+#: (``repro_torch.workloads.benchmark_chained_trace``: 7,076 events in
+#: 1,769 chains) on two 2 GB nodes with node 1 down over ``CHAIN_OUTAGE``,
+#: ``Chains(slack=4.0)``, windows of ``CHAIN_WINDOW`` events,
+#: ``slack_aware`` also in chunks of ``CHAIN_CHUNK``.  ``GOLDEN_TEL`` and
+#: ``GOLDEN_CHAIN`` are the JAX reference's results (``tel_digests``),
+#: pinned by ``tests/test_torch_telemetry.py`` and
+#: ``tests/test_torch_chains.py``.
+TEL_WINDOW = 2048
+TEL_CHUNK = 3000
+CHAIN_WINDOW = 512
+CHAIN_CHUNK = 1000
+CHAIN_OUTAGE = ((300.0, 1200.0, 1),)
+GOLDEN_CHAINED_TRACE = "52ea8a6858ec5f2a27a909a4337b8574e1f86e8cdb5d311a5b0f28d776966cc3"
+GOLDEN_TEL = {
+    "size_aware_4n": dict(
+        node="a4903e520896fe342f0fa2658248c5200cd6eaa1bb42b590ec481a7a0af98321",
+        outcome="7dd20cf3d0c0e27644b65d20f54b34a665387c1baf0db0b649c051feffab8ee9",
+        counts=[8478, 1379, 1358],
+        summary="037bb249bc0ac010ddd9db6a47949f295b140914ab92dd62669b0fbc97bf23e6",
+        n_windows=6,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=0,
+        tel_counts="71eabf89a90b7b0037df2dcc243453fc5ad45251c87df022293b0a3ac3c38a0d",
+        tel_free_mb="e9bf365e91818f8985ffee0b88176eb0f03da4d21c2f2e4579e0892828ec5a6f",
+        tel_occupancy="e5f19c7eaf2d4d94091684ac1c9bdfe2c97a303d2f710d32beac9bc5224ea6f6",
+        tel_invalidated="f401874fee3bc5e1fcbabfba108e5b9a9950d45810190098aae7734e91a1240f",
+        tel_nodes_up="6b17386508f31d7f63c3fda5327ba4093b2181203fdde04bdabd51610481167e",
+        tel_nodes_active="6b17386508f31d7f63c3fda5327ba4093b2181203fdde04bdabd51610481167e",
+        tel_chain_miss="f401874fee3bc5e1fcbabfba108e5b9a9950d45810190098aae7734e91a1240f",
+        tel_t_start="702090dc1e3aa1330cdb747efb4adedcd4cfe3484ff5d9ea0de6cb18c48df0ba",
+        tel_t_end="3dfc2671a0d294f9af392277fa032c66af556392c5da94fac941905e9251a6ca",
+        tel_event_start="7d3e6906e99ac64d33eb37b0b9e8383bdeeeb0b0397484ba1f7c0627f3c28561"),
+    "het16_nodes_failures": dict(
+        node="ae21d8c97dc0a7ca2927c033769cbfc8def249e41dcb3e38c6e9a5c7236ca82a",
+        outcome="6443aa5109cdfd2746fb3b10033b71673277a92a353c192120495ec5c3208a22",
+        counts=[9670, 1350, 195],
+        summary="96325d6eb8fa3d1d469581005fbc15501781206f63a62a9bb59be4789d7e0134",
+        n_windows=22,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=200,
+        tel_counts="c78fee5a5100800761b3a788042904dc35aaba3e248e951e068b9f811ce48e08",
+        tel_free_mb="4c16977bf55466ba9d9cc2ab3c88a64030d4253d15743e822e123365cb758cc2",
+        tel_occupancy="3d6d0477fb38b382e57ae8d981c45c986c8f483114f58819842aee40f50d01af",
+        tel_invalidated="a07d53ae772f7b1dacfa39e54d049b7c38438fed00e9aee3b06352e92a19e3c0",
+        tel_nodes_up="447ac91c9086babb09c0e9d66c538aac59cabcee5eb58796754a7ba46036c177",
+        tel_nodes_active="c9d621a45116001a9bd23c5413e2c40960b1e762e8a28905cb710e238a290f38",
+        tel_chain_miss="57940312e598617b2d464a34a17cb58abf7a11e1146866224f22ce6dcb3222e0",
+        tel_t_start="f70ad8169e72bba0d63e3ea2bc3be7aebaa51c513f657c0f51e422b8c1d2255f",
+        tel_t_end="e80320388037508de9dbff05a3f70f97c4adb6674c66494ddc811769843df4f7",
+        tel_event_start="6e4a1777f2f713bf756bf4c73df87a832a60720cb084ec4ef15cef03d2d72b00"),
+}
+GOLDEN_CHAIN = {
+    "slack_aware": dict(
+        node="9066f9db985b5e589f61816f416060b634b67ed46c3c5210fe4948e022ce9c37",
+        outcome="439993382334c877a41f3fb6a863e326dccdb94733e0899d1e8ee19644476c82",
+        counts=[1644, 3916, 1516],
+        summary="e642677ab38ea6a22c74e3ab254fdb25244379643a3202739cfc98225441775b",
+        n_windows=14,
+        n_chains=1769,
+        deadline_miss_pct=83.38044092707744,
+        n_invalidated=37,
+        tel_counts="a3f36ea66bb62a9d42f63175223a337c898e3ae6bfe49cd7687a50760d61e29e",
+        tel_free_mb="eefc8040fbd26fb0c1a0c7a1382ba8eb7245df30cb3de9b6a41353f6dc7950ff",
+        tel_occupancy="4bac05225933eba8f1fa35a37f74f258b45ee68f88d5152f9242c210f3593b29",
+        tel_invalidated="4a55af63a2d1a325c7332872eb376af3bd3a1c18a47d45107edd9bd7eb15af9b",
+        tel_nodes_up="ae1e81bd0870d5021109feabd41f39bba8a75d7e8859457e28689023a4b4261d",
+        tel_nodes_active="63abd08b5eeed6b7ae78e7d2d381a287803e80cdcc2acbd3dc3a5412619b0aa5",
+        tel_chain_miss="49306e105646dfc0f41e80262e4bf44309c4070615473d82746f4e8941bdb0b1",
+        tel_t_start="69d5a1e6b23adb3c045d91092695d113084ca1eca5e2ab8873c618fb63c257a2",
+        tel_t_end="dcacc635fa80656e3c48ffbcf0d91855f200c3ca6e49cb5ab3e2ec1b3cf260a1",
+        tel_event_start="1a076629ba0390e912b932e539688db6668b4cb6a15b2a22926f8e2af2249f30",
+        chain_latency="76e0de028d1cb7fd147942faf07e461a1f16bf8df4dd76b13176447997061bc9",
+        chain_dropped="e00219f7dc98668c66fd662b55fe0f738cf486af9b98cb1fd1c41605d4b4d249",
+        chain_done="bef20a5affcee1a205879f06e306ae6d76ad185358ff618f784ae43780f79eca",
+        chain_missed="b0a5865773664872d520510e9229486c12eab22e4b31eb3f0e045d73deed222f",
+        chain_deadline="700e20ba61e2bbc8ea2069b0a723f95548702d92b0cb54e85f0b6af4302d5dd8"),
+    "size_aware": dict(
+        node="20e7669c504f168109aae9bcd35a3e9681d5cf34ca07030167c5220a0dbeb342",
+        outcome="f7143fa1823a1f8e74bd677569eab3b9fabe136c9ee987eb54e61e6c7d475f47",
+        counts=[1439, 5264, 373],
+        summary="9913a1ee843f20e26a86fec0b905c92ea291d65c8f4ca0e8ee04161d1035dfda",
+        n_windows=14,
+        n_chains=1769,
+        deadline_miss_pct=85.30243075183719,
+        n_invalidated=37,
+        tel_counts="85c5b684acb8d855170eba857ca14849799570fd3d71b53e3efbe164524e274f",
+        tel_free_mb="c026d3ef62301551aa400592ecff86687a1709d81a73c874f558f0082a3df309",
+        tel_occupancy="164dfd4bd3e8121f37f73b0762a5e2d028b4de49bad3156098609d579a79cc40",
+        tel_invalidated="4a55af63a2d1a325c7332872eb376af3bd3a1c18a47d45107edd9bd7eb15af9b",
+        tel_nodes_up="ae1e81bd0870d5021109feabd41f39bba8a75d7e8859457e28689023a4b4261d",
+        tel_nodes_active="63abd08b5eeed6b7ae78e7d2d381a287803e80cdcc2acbd3dc3a5412619b0aa5",
+        tel_chain_miss="4f7772217ba7d0a9c5fd164b99bf117ecaf13cc53e357de54ee304bf3f7aaed3",
+        tel_t_start="69d5a1e6b23adb3c045d91092695d113084ca1eca5e2ab8873c618fb63c257a2",
+        tel_t_end="dcacc635fa80656e3c48ffbcf0d91855f200c3ca6e49cb5ab3e2ec1b3cf260a1",
+        tel_event_start="1a076629ba0390e912b932e539688db6668b4cb6a15b2a22926f8e2af2249f30",
+        chain_latency="c1f203950b35e07ec636155df1c03f868bb348f43e0cd2951689a74455fb65b9",
+        chain_dropped="d03f2e03812ecde81b42b1196934e9f4e8d51724d853bfeb496daf228fc4ae7b",
+        chain_done="bef20a5affcee1a205879f06e306ae6d76ad185358ff618f784ae43780f79eca",
+        chain_missed="30e1ff716d367ee7129df2b640e745c8bf23cc0b8cf53b82575a0a9a497a39c6",
+        chain_deadline="700e20ba61e2bbc8ea2069b0a723f95548702d92b0cb54e85f0b6af4302d5dd8"),
 }
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core op/s,
@@ -1108,13 +1230,155 @@ def autoscale_phase(dev, trace) -> dict:
             "runs": runs}
 
 
+def telemetry_scenarios(trace) -> dict:
+    """The telemetry phase's two scenarios over the whole ``trace``."""
+    from repro_torch.sim import Scenario
+    return {
+        "size_aware_4n": Scenario.cluster(
+            (1024.0, 2048.0, 6144.0, 6144.0), routing="size_aware",
+            max_slots=256, telemetry=TEL_WINDOW),
+        "het16_nodes_failures": dataclasses.replace(
+            autoscale_scenarios(trace)["het16_nodes_failures"],
+            telemetry=CHAIN_WINDOW)}
+
+
+def chain_scenarios() -> dict:
+    """The chain phase's scenarios, one a routing policy."""
+    from repro_torch.sim import Chains, Scenario
+    return {r: Scenario.cluster((2048.0, 2048.0), routing=r, max_slots=256,
+                                chains=Chains(slack=4.0),
+                                failures=CHAIN_OUTAGE, telemetry=CHAIN_WINDOW)
+            for r in ("slack_aware", "size_aware")}
+
+
+#: The telemetry window arrays and per-chain arrays ``tel_digests`` holds.
+TEL_ARRAYS = ("counts", "free_mb", "occupancy", "invalidated", "nodes_up",
+              "nodes_active", "chain_miss", "t_start", "t_end",
+              "event_start")
+CHAIN_ARRAYS = ("latency", "dropped", "done", "missed", "deadline")
+
+
+def tel_digests(res) -> dict:
+    """What ``GOLDEN_TEL`` and ``GOLDEN_CHAIN`` hold of a run (of either
+    package's ``Result``): digests of ``node``/``outcome``, of every
+    telemetry window array (``tel_*``) and every per-chain array
+    (``chain_*``) in its own dtype, and of the whole ``summary()`` (its
+    JSON), with a few summary keys in the clear."""
+    s = res.summary()
+    out = dict(node=digest(res.node), outcome=digest(res.outcome),
+               counts=np.bincount(res.outcome, minlength=3).tolist(),
+               summary=hashlib.blake2s(json.dumps(
+                   s, sort_keys=True).encode()).hexdigest(),
+               **{k: s[k] for k in ("n_windows", "n_chains",
+                                    "deadline_miss_pct", "n_invalidated")})
+    for pre, owner, fields in (("tel_", res.telemetry, TEL_ARRAYS),
+                               ("chain_", res.chains, CHAIN_ARRAYS)):
+        for f in fields if owner is not None else ():
+            a = np.asarray(getattr(owner, f))
+            out[pre + f] = digest(a, a.dtype)
+    return out
+
+
+def telemetry_phase(dev, trace) -> dict:
+    """Telemetry and chains on the card, under
+    ``set_sync_debug_mode("error")``, every count zeroed before and read
+    after: ``telemetry_scenarios``' 4-node cluster over the whole trace in
+    every mode, monolithic and in chunks of ``TEL_CHUNK``, and the same
+    scenario without telemetry (its outcomes must not move; the
+    overhead compares the two monolithic runs' walls without their
+    capture); ``chain_scenarios`` over the chain benchmark's trace in
+    every mode, ``slack_aware`` in ``fused`` also in chunks of
+    ``CHAIN_CHUNK``; and het16 autoscaled with telemetry in ``fused``.
+    Every run goes through the block runner (its counts and B1's are
+    checked) and is held to ``GOLDEN_TEL``/``GOLDEN_CHAIN``."""
+    from repro_torch.sim import simulate
+    from repro_torch.sim.api import trace_fingerprint
+    from repro_torch.workloads import benchmark_chained_trace
+    ctr = benchmark_chained_trace()
+    check(trace_fingerprint(ctr) == GOLDEN_CHAINED_TRACE,
+          "the stored chained trace differs from the one the reference ran")
+    tel, chains = telemetry_scenarios(trace), chain_scenarios()
+    n, nc = len(trace), len(ctr)
+    runs, fused = {}, 0
+
+    def held(name, run, what, spans, mode, scn, tr, golden, chunk=None):
+        nonlocal fused
+        res, runs[run] = timed_run(
+            what, spans, mode,
+            lambda: simulate(scn, tr, mode=mode, device=dev,
+                             chunk_events=chunk))
+        got = tel_digests(res)
+        check(got == golden[name],
+              f"{what}: {got} != the JAX reference {golden[name]}")
+        check(all(np.isfinite(v) for v in res.summary().values()),
+              f"{what}: non-finite summary value")
+        fused += sum(spans) if mode == "fused" else 0
+        return res
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        check(sync_guard_refuses(dev),
+              "sync debug mode did not refuse a host sync")
+        zero_counts()                   # the telemetry path starts here
+        total = RunCounts()
+        scn = tel["size_aware_4n"]
+        off = dataclasses.replace(scn, telemetry=None)
+        for mode in ("gather", "vmap", "fused"):
+            on = held("size_aware_4n", f"tel/{mode}",
+                      f"telemetry size_aware_4n mode={mode}", [n], mode,
+                      scn, trace, GOLDEN_TEL)
+            held("size_aware_4n", f"tel/{mode}/chunked",
+                 f"telemetry size_aware_4n mode={mode} "
+                 f"chunk_events={TEL_CHUNK}", spans_of(n, TEL_CHUNK), mode,
+                 scn, trace, GOLDEN_TEL, TEL_CHUNK)
+            res, runs[f"off/{mode}"] = timed_run(
+                f"no telemetry size_aware_4n mode={mode}", [n], mode,
+                lambda: simulate(off, trace, mode=mode, device=dev))
+            fused += n if mode == "fused" else 0
+            check(np.array_equal(res.node, on.node)
+                  and np.array_equal(res.outcome, on.outcome),
+                  f"mode={mode}: telemetry moved the outcomes")
+            r_on, r_off = runs[f"tel/{mode}"], runs[f"off/{mode}"]
+            over = ((r_on["wall_s"] - r_on["capture_s"])
+                    / (r_off["wall_s"] - r_off["capture_s"]) - 1.0)
+            r_on["overhead"] = over
+            print(f"  telemetry overhead, mode={mode}: {100 * over:.1f}% "
+                  "of the run without it (walls less capture)", flush=True)
+        for name, scn in chains.items():
+            for mode in ("gather", "vmap", "fused"):
+                held(name, f"chains/{name}/{mode}",
+                     f"chains {name} mode={mode}", [nc], mode, scn, ctr,
+                     GOLDEN_CHAIN)
+        held("slack_aware", "chains/slack_aware/fused/chunked",
+             f"chains slack_aware mode=fused chunk_events={CHAIN_CHUNK}",
+             spans_of(nc, CHAIN_CHUNK), "fused", chains["slack_aware"], ctr,
+             GOLDEN_CHAIN, CHAIN_CHUNK)
+        held("het16_nodes_failures", "tel/het16_nodes_failures/fused",
+             "telemetry het16 autoscaled mode=fused",
+             spans_of(n, ASC_EPOCH), "fused", tel["het16_nodes_failures"],
+             trace, GOLDEN_TEL)
+        counts = total.delta()                # ... and ends here
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(counts["b1_launches"] == fused,
+          f"telemetry and chain runs launched B1 {counts['b1_launches']} "
+          f"times, want {fused}")
+    print(f"telemetry and chains: every run matches the JAX reference "
+          f"bitwise; B1 launched {counts['b1_launches']} times; "
+          f"{counts['captures']} captures", flush=True)
+    return {"launches": counts["b1_launches"], "counts": counts,
+            "runs": runs}
+
+
 def busy_phase(dev, trace) -> dict:
     """Device busy share and device records an event over two graph
     replays (the first ``2 * BLOCK_EVENTS`` events) of the kiss scenario,
     for the static runner and the autoscaled one (an epoch of
     ``ASC_EPOCH`` events, so the window holds no re-split: the per-event
-    cost of the live mask and the pressure), each in ``gather`` and
-    ``fused``: summed device time of every kernel and copy the profiler
+    cost of the live mask and the pressure), and of the ``slack_aware``
+    chain scenario on the chain benchmark's trace (telemetry and chains
+    on, the runner with failures), each in ``gather`` and ``fused``:
+    summed device time of every kernel and copy the profiler
     saw over the host wall time of the run, and the count of those
     device records over the events.  The window is short because the
     profiler's post-processing costs ~0.1 s an event.  In ``fused`` the
@@ -1126,15 +1390,18 @@ def busy_phase(dev, trace) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.cluster.graphs import BLOCK_EVENTS
     from repro_torch.sim import Autoscale, simulate
+    from repro_torch.workloads import benchmark_chained_trace
     n_events = 2 * BLOCK_EVENTS
     head, kiss = trace.head(n_events), scenarios()["kiss4096"]
-    flavours = {"static": kiss, "autoscaled": dataclasses.replace(
-        kiss, autoscale=Autoscale(epoch_events=ASC_EPOCH))}
+    flavours = {"static": (kiss, head), "autoscaled": (dataclasses.replace(
+        kiss, autoscale=Autoscale(epoch_events=ASC_EPOCH)), head),
+        "telemetry+chains": (chain_scenarios()["slack_aware"],
+                             benchmark_chained_trace().head(n_events))}
     out = {}
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0.0)
-    for flavour, scn in flavours.items():
+    for flavour, (scn, head) in flavours.items():
         for mode in ("gather", "fused"):
             simulate(scn, head.head(50), mode=mode, device=dev)  # warm-up
             for attempt in range(4):
@@ -1647,23 +1914,26 @@ def main() -> int:
     path = path_phase(dev, trace)
     failures = failure_phase(dev, trace)
     autoscale = autoscale_phase(dev, trace)
+    telemetry = telemetry_phase(dev, trace)
     busy = busy_phase(dev, trace)
     serving = serving_phase(dev)
     eviction = eviction_phase(dev, serving["sizes"])
     logits = logits_phase(dev)
 
     main_row = kernels["rows"][0]            # [2, 1024]: Scenario.kiss
+    b1_path = (path["launches"] + autoscale["launches"]
+               + telemetry["launches"])
     entries = [dict(name="pool_step.evict_place", route="cuda",
                     source="src/repro_torch/kernels/csrc/pool_step.cu",
                     replaces="src/repro/kernels/pool_step.py:43",
-                    launches=path["launches"] + autoscale["launches"],
+                    launches=b1_path,
                     launches_by_path=dict(
                         simulator=path["launches"],
                         autoscale=autoscale["launches"],
+                        telemetry_chains=telemetry["launches"],
                         failures=failures["launches"]),
                     cuda_kernels=POOL_KERNELS,
-                    cuda_kernel_launches=(path["launches"]
-                                          + autoscale["launches"]),
+                    cuda_kernel_launches=b1_path,
                     max_abs_err=max(r["max_abs_err"]
                                     for r in kernels["rows"]),
                     ms=main_row["ms"], plain_ms=main_row["plain_ms"],
@@ -1704,6 +1974,8 @@ def main() -> int:
                      "counts": failures["counts"]},
         "autoscale": {"runs": autoscale["runs"],
                       "counts": autoscale["counts"]},
+        "telemetry_chains": {"runs": telemetry["runs"],
+                             "counts": telemetry["counts"]},
         "device_busy_share": busy,
         "serving": {k: serving[k] for k in ("stats", "wall_s", "models",
                                             "peak_gb", "busy")},

@@ -18,7 +18,8 @@ code it shares with the reference is copied, not imported.
 Ported so far:
 
 * ``simulate`` for static, failure-injected and autoscaled scenarios,
-  monolithic or chunked, in the ``"gather"``, ``"vmap"`` and
+  with telemetry and function chains, monolithic or chunked, in the
+  ``"gather"``, ``"vmap"`` and
   ``"fused"`` step modes, with the fused evict-and-place step written as a CUDA kernel
   (``repro_torch.kernels.pool_step``) and, on the card, each block of
   events replayed as one CUDA graph (``repro_torch.cluster.graphs``);

@@ -57,8 +57,23 @@ spawns or retires at most one node, all on the device without a sync,
 and writes the new state back into the carry in place.  A trailing
 partial epoch runs unpadded and ends with no re-split.
 
-Not ported yet: telemetry (ROADMAP A9), chains (A10), vertical scaling
-(A11), sweeps (A12).
+Telemetry (``window`` events a window) and chains (a
+:class:`~repro_torch.core.continuum.ChainPlan`) ride every run shape.
+With chains on, each event reads its chain's latency so far and its
+deadline (``_chain_pre``: the slack and stage routing sees), and after
+its step adds the stage's latency and its drop to the chain's row and
+judges the deadline at the chain's final stage (``_chain_event``); the
+per-chain latency f32[C] and drop flag bool[C] are device state written
+in place, the miss flag is a per-event output.  Telemetry needs from the
+device only what the host cannot derive: the state after each window's
+last event (free MB and residents per node, :class:`TelSink`) and each
+event's recovery invalidations; the counters, up and active counts and
+window sums are folded on the host from the per-event outputs
+(:func:`_tel_np`), exact integers in any order.  Window indices and
+chain rows are global, so a chunked run gives the monolithic arrays for
+any chunk size.
+
+Not ported yet: vertical scaling (ROADMAP A11), sweeps (A12).
 """
 from __future__ import annotations
 
@@ -69,13 +84,13 @@ import torch
 
 from .._device import resolve_device, sync_point
 from ..core import xp
-from ..core.continuum import (Autoscale, ClusterConfig, Failures,
+from ..core.continuum import (Autoscale, ChainPlan, ClusterConfig, Failures,
                               cloud_cold_draws, route_hashes)
 from ..core.pool import (Event, PoolState, _evict_place_lax, _first_true,
                          _select, get_step_backend, init_pool, pool_resize,
                          pool_step_batch, stack_pools)
 from ..core.registry import ROUTING, RouteCtx
-from ..core.types import DROP, MISS, PoolConfig, Trace
+from ..core.types import DROP, HIT, MISS, PoolConfig, Trace
 from .metrics import ClusterResult, build_result
 
 #: The step formulations, in documentation order.
@@ -193,7 +208,11 @@ def _make_step(routing: torch.Tensor, unified: torch.Tensor,
     ``cloud`` the f32[2] ``(cloud_rtt_s, cloud_cold_prob)``, all on the
     run's device.  ``up_n`` (bool[N], optional) is the live-node mask:
     routing reads it through ``RouteCtx.node_up``, and a request routed
-    to a down node drops to the cloud with every pool left as it was."""
+    to a down node drops to the cloud with every pool left as it was.
+    ``cslack``/``cstage`` (0-d f32/i32, optional) are the event's chain
+    slack and stage for ``RouteCtx``; without them the step reads the
+    constants ``+inf``/``-1``, so slack-aware policies take their
+    slack-rich branch."""
     n = n_nodes
     dev = unified.device
     all_up = xp.asx(torch.ones(n, dtype=torch.bool, device=dev))
@@ -206,14 +225,16 @@ def _make_step(routing: torch.Tensor, unified: torch.Tensor,
     backend = (_evict_place_lax if mode in ("gather", "vmap")
                else get_step_backend(mode))
 
-    def step(pools: PoolState, ev: ClusterEvent, up_n=None):
+    def step(pools: PoolState, ev: ClusterEvent, up_n=None, cslack=None,
+             cstage=None):
         tgt = torch.where(unified, 0, ev.cls).to(torch.int64)  # [N] pool
         col = tgt.unsqueeze(1)
         free_t = pools.free.view(n, 2).gather(1, col).squeeze(1)
         cap_t = pools.capacity.view(n, 2).gather(1, col).squeeze(1)
         node = _route(routing, ev, free_t, cap_t, cloud,
-                      all_up if up_n is None else xp.asx(up_n), no_slack,
-                      no_stage)                               # [1]
+                      all_up if up_n is None else xp.asx(up_n),
+                      no_slack if cslack is None else cslack,
+                      no_stage if cstage is None else cstage)  # [1]
         ok = None if up_n is None else up_n.index_select(0, node)  # [1]
         p = node * 2 + tgt.index_select(0, node)              # [1]
         core_ev = Event(ev.t, ev.func_id, ev.size, ev.cls, ev.warm, ev.cold)
@@ -266,31 +287,239 @@ def _add_pressure(acc: Pressure, node, cls, outcome) -> None:
     acc.dropw.add_(drop)
 
 
+class ChainXs(NamedTuple):
+    """Per-event chain data (``[L]`` tensors): the dense chain row
+    (int64, an ``index_select`` index), the stage (i32), whether the
+    event is its chain's final stage, and the pre-drawn cloud cold flip
+    that prices a dropped stage."""
+
+    cid: torch.Tensor
+    stage: torch.Tensor
+    last: torch.Tensor
+    ccold: torch.Tensor
+
+
+class ChainAcc(NamedTuple):
+    """A run's chain state on its device: the latency so far ``lat``
+    f32[C] and ``dropped`` bool[C], which each event of a chain writes in
+    its row in place, and what the step reads: ``deadline`` f32[C] and
+    the cloud round trip ``rtt`` (0-d f32) that a drop pays."""
+
+    lat: torch.Tensor
+    dropped: torch.Tensor
+    deadline: torch.Tensor
+    rtt: torch.Tensor
+
+
+def _chain_xs_np(plan: ChainPlan, ccold: np.ndarray) -> ChainXs:
+    """The plan's per-event arrays on the host, in the dtypes the step
+    reads; a run uploads them a chunk at a time."""
+    return ChainXs(cid=np.asarray(plan.cid, np.int64),
+                   stage=np.asarray(plan.stage, np.int32),
+                   last=np.asarray(plan.last, bool),
+                   ccold=np.asarray(ccold, bool))
+
+
+def _chain_acc(deadline: torch.Tensor, cloud: torch.Tensor) -> ChainAcc:
+    """Zeroed chain state for the deadlines f32[C], on their device."""
+    return ChainAcc(lat=torch.zeros_like(deadline),
+                    dropped=torch.zeros_like(deadline, dtype=torch.bool),
+                    deadline=deadline, rtt=cloud[0])
+
+
+def _chain_pre(acc: ChainAcc, c: torch.Tensor):
+    """The event's chain view before its step (the reference's
+    ``_chain_pre``): the chain's latency so far and deadline, both [1],
+    and the slack ``deadline - latency`` as the 0-d value routing reads.
+    ``c`` is the chain row as an int64[1] tensor."""
+    lat = acc.lat.index_select(0, c)
+    dl = acc.deadline.index_select(0, c)
+    return lat, dl, (dl - lat).view(())
+
+
+def _chain_event(acc: ChainAcc, c: torch.Tensor, last, ccold, lat, dl,
+                 ev: ClusterEvent, outcome: torch.Tensor) -> torch.Tensor:
+    """Fold one stepped event into its chain's row, in place (the
+    reference's ``_chain_event``, its f32 operations in its order): price
+    the stage (hit -> warm, miss -> cold, drop -> RTT + cold or warm by
+    the pre-drawn flip), add it to the latency, note a drop, and judge
+    the deadline if this is the final stage (a dropped stage misses
+    whatever the time).  Returns the miss flag bool[1]."""
+    stage_lat = torch.where(
+        outcome == HIT, ev.warm,
+        torch.where(outcome == MISS, ev.cold,
+                    acc.rtt + torch.where(ccold, ev.cold, ev.warm)))
+    final = lat + stage_lat
+    dropped = acc.dropped.index_select(0, c) | (outcome == DROP)
+    acc.lat.index_copy_(0, c, final)
+    acc.dropped.index_copy_(0, c, dropped)
+    return last & (dropped | (final > dl))
+
+
+def _n_windows(n_events: int, window: int) -> int:
+    return -(-n_events // window)
+
+
+def _snapshot(pools: PoolState, n_nodes: int, free_out: torch.Tensor,
+              occ_out: torch.Tensor) -> None:
+    """Write the state after an event into ``free_out`` f32[N] (free MB
+    per node, ``free.view(N, 2).sum(1)`` as the reference sums it) and
+    ``occ_out`` i32[N] (resident containers per node), in place."""
+    torch.sum(pools.free.reshape(n_nodes, 2), 1, out=free_out)
+    torch.sum(pools.valid.reshape(n_nodes, -1), 1, dtype=torch.int32,
+              out=occ_out)
+
+
+class TelSink:
+    """The telemetry a run keeps on its device: the state after each
+    window's last event, free MB ``free`` f32[W, N] and residents
+    ``occ`` i32[W, N] (the reference's snapshot columns, last write
+    wins).  Window ``w`` holds global events ``[w * window, (w + 1) *
+    window)``; the last window may be short."""
+
+    def __init__(self, window: int, n_events: int, n_nodes: int, device):
+        w = _n_windows(n_events, window)
+        self.window, self.n_events, self.n_nodes = window, n_events, n_nodes
+        self.free = torch.zeros((w, n_nodes), dtype=torch.float32,
+                                device=device)
+        self.occ = torch.zeros((w, n_nodes), dtype=torch.int32,
+                               device=device)
+
+    def is_end(self, j: int) -> bool:
+        """Whether global event ``j`` is its window's last."""
+        return (j + 1) % self.window == 0 or j == self.n_events - 1
+
+    def ends(self, s: int, e: int) -> list[int]:
+        """The global events in ``[s, e)`` that end a window."""
+        out = list(range(s + (self.window - 1 - s) % self.window, e,
+                         self.window))
+        last = self.n_events - 1
+        if s <= last < e and (last + 1) % self.window:
+            out.append(last)
+        return out
+
+    def at_ends(self, base: int):
+        """The snapshot function of an eagerly stepped span whose first
+        event is global event ``base``: event ``i`` of the span writes
+        its window's row if it ends the window."""
+        def snap(i: int, pools: PoolState) -> None:
+            j = base + i
+            if self.is_end(j):
+                w = j // self.window
+                _snapshot(pools, self.n_nodes, self.free[w], self.occ[w])
+        return snap
+
+
+class EventOut(NamedTuple):
+    """Per-event outputs beyond node and outcome (``[L]`` tensors, or
+    ``None`` when the run keeps no such thing): the residents a
+    recovery invalidated at the event (telemetry with failures), the
+    chain deadline miss (chains), and ``snap(i, pools)``, which records
+    the state after event ``i`` (telemetry)."""
+
+    inval: torch.Tensor | None = None
+    miss: torch.Tensor | None = None
+    snap: object = None
+
+
 def _run_events(step, pools: PoolState, inval, events: ClusterEvent, up,
                 recover, node_out: torch.Tensor, outcome_out: torch.Tensor,
-                n_nodes: int, count: int, acc: Pressure | None = None):
+                n_nodes: int, count: int, acc: Pressure | None = None,
+                chain: tuple | None = None, out: EventOut | None = None):
     """Events ``[0, count)`` of ``events`` (``[L]`` tensors), one at a
     time, without a host sync.  With failures (``up``/``recover``
     bool[L, N] and ``inval`` i32[N] given) each event first clears the
     nodes recovering at it.  An autoscaled run passes ``acc``: its
     ``active`` mask joins the live mask and each event adds its pressure.
-    Writes each event's node and outcome into ``node_out``/``outcome_out``
-    and returns ``(pools, inval)``; in ``gather`` mode the static path
-    updates ``pools`` in place, else the returned state is new tensors."""
+    ``chain`` is ``(ChainAcc, ChainXs)`` with chains on: each event
+    routes with its chain's slack and stage and is folded into its
+    chain's row.  ``out`` takes the per-event telemetry and chain
+    outputs.  Writes each event's node and outcome into
+    ``node_out``/``outcome_out`` and returns ``(pools, inval)``; in
+    ``gather`` mode the static path updates ``pools`` in place, else the
+    returned state is new tensors."""
+    out = out or EventOut()
     for i in range(count):
         ev = ClusterEvent(*(a[i] for a in events))
         live = None if up is None else up[i]
         if recover is not None:
             cnt, pools = _invalidate_nodes(pools, recover[i], n_nodes)
             inval = inval + cnt
+            if out.inval is not None:
+                out.inval[i:i + 1].copy_(cnt.sum(dtype=torch.int32))
         if acc is not None:
             live = acc.active if live is None else live & acc.active
-        pools, node, outcome = step(pools, ev, live)
+        if chain is None:
+            pools, node, outcome = step(pools, ev, live)
+        else:
+            cacc, cx = chain
+            c = cx.cid[i:i + 1]
+            lat, dl, slack = _chain_pre(cacc, c)
+            pools, node, outcome = step(pools, ev, live, slack, cx.stage[i])
+            out.miss[i:i + 1].copy_(_chain_event(
+                cacc, c, cx.last[i], cx.ccold[i], lat, dl, ev, outcome))
         if acc is not None:
             _add_pressure(acc, node, ev.cls, outcome)
+        if out.snap is not None:
+            out.snap(i, pools)
         node_out[i:i + 1].copy_(node)
         outcome_out[i:i + 1].copy_(outcome)
     return pools, inval
+
+
+def _tel_np(sink: TelSink, cls: np.ndarray, outcome: np.ndarray,
+            inval_ev: np.ndarray | None = None,
+            miss_ev: np.ndarray | None = None, up: np.ndarray | None = None,
+            active: np.ndarray | None = None, retired=()) -> dict:
+    """The window arrays under the reference's ``_tel_np`` keys.  Counters
+    are integer sums of the per-event outputs (exact in any order): the
+    counts per (class, outcome), the recovery invalidations ``inval_ev``
+    i32[T] plus each retirement ``(e, count)`` in the window of its
+    epoch's last event ``e - 1``, and the chain misses ``miss_ev``.  The
+    up and active node counts are those of each window's last event
+    (``up`` bool[T, N] and ``active`` i64[T] counts; all N without
+    them); the snapshots are the sink's.  Reads the sink back: call it
+    inside a sync point."""
+    t, window, n = len(outcome), sink.window, sink.n_nodes
+    w_of = np.arange(t) // window
+    n_w = _n_windows(t, window)
+    ends = np.minimum((np.arange(n_w) + 1) * window, t) - 1
+    counts = np.zeros((n_w, 2, 3), np.int64)
+    np.add.at(counts, (w_of, np.asarray(cls), np.asarray(outcome)), 1)
+    inval = np.zeros(n_w, np.int64)
+    if inval_ev is not None:
+        np.add.at(inval, w_of, inval_ev)
+    for e, cnt in retired:
+        inval[(e - 1) // window] += cnt
+    cmiss = np.zeros(n_w, np.int64)
+    if miss_ev is not None:
+        np.add.at(cmiss, w_of, miss_ev)
+    return {
+        "counts": counts,
+        "free_mb": sink.free.cpu().numpy(),
+        "occupancy": sink.occ.cpu().numpy().astype(np.int64),
+        "invalidated": inval,
+        "nodes_up": (np.full(n_w, n, np.int64) if up is None
+                     else up[ends].sum(1).astype(np.int64)),
+        "nodes_active": (np.full(n_w, n, np.int64) if active is None
+                         else np.asarray(active, np.int64)[ends]),
+        "chain_miss": cmiss}
+
+
+def _chain_np(plan: ChainPlan, chain: ChainAcc, miss_ev: np.ndarray) -> dict:
+    """The per-chain arrays under the reference's ``_chain_np`` keys:
+    latency and drops from the device state, ``done`` (a final stage was
+    stepped) from the plan and ``missed`` from the per-event miss flags,
+    both the OR over the chain's events the reference accumulates.
+    Reads the state back: call it inside a sync point."""
+    c = plan.n_chains
+    done = np.zeros(c, bool)
+    done[plan.cid[plan.last]] = True
+    missed = np.zeros(c, bool)
+    missed[plan.cid[np.asarray(miss_ev) != 0]] = True
+    return {"latency": chain.lat[:c].cpu().numpy(),
+            "dropped": chain.dropped[:c].cpu().numpy(),
+            "done": done, "missed": missed}
 
 
 def _failure_masks(failures: Failures | None, trace: Trace, n_nodes: int):
@@ -314,11 +543,65 @@ def _run_inputs(cfg: ClusterConfig, device):
                          dtype=torch.float32, device=device))
 
 
+class _RunData(NamedTuple):
+    """What a run uploads beyond the events: the failure masks
+    (``masks`` ``(up, recover)`` bool[T, N] or ``None``), the chain
+    plan's per-event arrays (``cx`` or ``None``) and the chain
+    deadlines f32[C] on the device (or ``None``), all on the host but
+    the deadlines."""
+
+    masks: tuple | None
+    cx: ChainXs | None
+    deadline: torch.Tensor | None
+
+
+def _run_data(trace: Trace, n_nodes: int, failures, plan, ccold, device):
+    masks = (_failure_masks(failures, trace, n_nodes)
+             if failures is not None else None)
+    if plan is None:
+        return _RunData(masks, None, None)
+    return _RunData(masks, _chain_xs_np(plan, ccold),
+                    torch.tensor(plan.deadline[:plan.n_chains],
+                                 dtype=torch.float32, device=device))
+
+
+def _outputs(t_len: int, failing: bool, tel_on: bool, ch_on: bool,
+             device) -> tuple:
+    """A run's per-event output tensors: node and outcome, and the
+    recovery invalidations (telemetry with failures) and the chain miss
+    flags (chains), each i32[T] or ``None``."""
+    def i32():
+        return torch.zeros(t_len, dtype=torch.int32, device=device)
+    return (i32(), i32(), i32() if failing and tel_on else None,
+            i32() if ch_on else None)
+
+
+def _extras(trace: Trace, outcome, data: _RunData, window, plan, sink,
+            chain, inval_ev, miss_ev, active=None, retired=()) -> dict:
+    """The run's telemetry and chain arrays (``"telemetry"``,
+    ``"chains"``) from its per-event outputs and device state.  Reads
+    the device back: call it inside a sync point."""
+    out = {}
+    if window is not None:
+        out["telemetry"] = _tel_np(
+            sink, trace.cls, outcome,
+            None if inval_ev is None else inval_ev.cpu().numpy(),
+            None if miss_ev is None else miss_ev.cpu().numpy(),
+            None if data.masks is None else data.masks[0], active, retired)
+    if plan is not None:
+        out["chains"] = _chain_np(plan, chain, miss_ev.cpu().numpy())
+    return out
+
+
 def _replay(cfg: ClusterConfig, trace: Trace, device, mode: str,
             chunk: int | None, failures: Failures | None,
-            block_events: int | None = None):
-    """Run the trace; returns ``(node i32[T], outcome i32[T], invalidated
-    i64[N] or None, node_up bool[T, N] or None)`` on the host.
+            block_events: int | None = None, window: int | None = None,
+            plan: ChainPlan | None = None, ccold: np.ndarray | None = None):
+    """Run the trace; returns ``(node i32[T], outcome i32[T], extras)``
+    on the host, ``extras`` holding ``invalidated`` i64[N] and
+    ``node_up`` bool[T, N] with failures, ``telemetry`` with a window
+    length ``window`` and ``chains`` with a chain ``plan`` (whose cloud
+    cold flips are ``ccold`` bool[T]).
 
     A monolithic CPU run (``chunk`` None) is the host loop; every other
     run goes chunk by chunk through the block runner (on the card a
@@ -327,69 +610,86 @@ def _replay(cfg: ClusterConfig, trace: Trace, device, mode: str,
     from . import graphs
     n, t_len = cfg.n_nodes, len(trace)
     failing = failures is not None
+    tel_on, ch_on = window is not None, plan is not None
     ev_np = _host_events(trace, n)
-    masks = _failure_masks(failures, trace, n) if failing else None
-    node_np = np.empty(t_len, np.int32)
-    outcome_np = np.empty(t_len, np.int32)
+    with sync_point(device):
+        data = _run_data(trace, n, failures, plan, ccold, device)
+        sink = TelSink(window, t_len, n, device) if tel_on else None
     if chunk is None and device.type == "cpu":
         pools, routing, unified, cloud = _run_inputs(cfg, device)
         step = _make_step(routing, unified, cloud, n, mode)
-        up, rec = (_upload(masks, 0, t_len, device) if failing
+        up, rec = (_upload(data.masks, 0, t_len, device) if failing
                    else (None, None))
         inval = torch.zeros(n, dtype=torch.int32) if failing else None
+        node, outcome, inval_ev, miss_ev = _outputs(t_len, failing, tel_on,
+                                                    ch_on, device)
+        chain = _chain_acc(data.deadline, cloud) if ch_on else None
         _, inval = _run_events(
             step, pools, inval, ClusterEvent(*_upload(ev_np, 0, t_len,
                                                        device)),
-            up, rec, torch.from_numpy(node_np), torch.from_numpy(outcome_np),
-            n, t_len)
+            up, rec, node, outcome, n, t_len,
+            chain=None if chain is None else (
+                chain, ChainXs(*_upload(data.cx, 0, t_len, device))),
+            out=EventOut(inval_ev, miss_ev,
+                         None if sink is None else sink.at_ends(0)))
     else:
         chunk = chunk or max(t_len, 1)
         with sync_point(device):
-            runner = graphs.block_runner(device, n, cfg.max_slots, mode,
-                                         failing, block_events)
-            runner.load(*_run_inputs(cfg, device))
+            runner = graphs.block_runner(
+                device, n, cfg.max_slots, mode, failing, block_events,
+                tel=tel_on, chains=plan.n_chains if ch_on else 0)
+            runner.load(*_run_inputs(cfg, device), deadline=data.deadline,
+                        sink=sink)
+            host = _outputs(t_len, failing, tel_on, ch_on, "cpu")
         for s in range(0, t_len, chunk):
             e = min(s + chunk, t_len)
             with sync_point(device):
                 ev = ClusterEvent(*_upload(ev_np, s, e, device))
-                up, rec = (_upload(masks, s, e, device) if failing
+                up, rec = (_upload(data.masks, s, e, device) if failing
                            else (None, None))
-                node = torch.empty(e - s, dtype=torch.int32, device=device)
-                outcome = torch.empty_like(node)
-            runner.run_chunk(ev, up, rec, node, outcome)
+                cx = (ChainXs(*_upload(data.cx, s, e, device)) if ch_on
+                      else None)
+                outs = _outputs(e - s, failing, tel_on, ch_on, device)
+            runner.run_chunk(ev, up, rec, outs[0], outs[1], s, cx, *outs[2:])
             with sync_point(device):
-                node_np[s:e] = node.cpu().numpy()
-                outcome_np[s:e] = outcome.cpu().numpy()
-        inval = runner.inval if failing else None
-    if not failing:
-        return node_np, outcome_np, None, None
+                for h, d in zip(host, outs):
+                    if h is not None:
+                        h[s:e].copy_(d)
+        node, outcome, inval_ev, miss_ev = host
+        inval, chain = runner.inval, runner.chain
+    node_np, outcome_np = node.numpy(), outcome.numpy()
     with sync_point(device):
-        inval = inval.cpu().numpy().astype(np.int64)
-    return node_np, outcome_np, inval, masks[0]
+        extras = _extras(trace, outcome_np, data, window, plan, sink, chain,
+                         inval_ev, miss_ev)
+        if failing:
+            extras.update(invalidated=inval.cpu().numpy().astype(np.int64),
+                          node_up=data.masks[0])
+    return node_np, outcome_np, extras
 
 
 def _simulate_cluster(cfg: ClusterConfig, trace: Trace, device,
                       rng_seed: int = 0, mode: str = "gather",
                       chunk_events: int | None = None,
                       failures: Failures | None = None,
-                      block_events: int | None = None
+                      block_events: int | None = None,
+                      telemetry: int | None = None,
+                      chains: ChainPlan | None = None
                       ) -> tuple[ClusterResult, dict]:
     """One cluster run on ``device`` (``None`` is the CUDA device),
     monolithic or in chunks of ``chunk_events``, with or without
-    ``failures``: ``(ClusterResult, extras)``, where ``extras`` is
-    ``{"invalidated": i64[N], "node_up": bool[T, N]}`` with failures and
-    ``{}`` without."""
+    ``failures``: ``(ClusterResult, extras)``, where ``extras`` holds
+    ``invalidated`` i64[N] and ``node_up`` bool[T, N] with failures, the
+    window arrays ``telemetry`` with a window length ``telemetry``, and
+    the per-chain arrays ``chains`` with a compiled chain plan
+    ``chains`` (the reference's ``_tel_np``/``_chain_np`` keys)."""
     check_step_mode(mode)
     chunk = check_chunk_events(chunk_events)
     device = resolve_device(device)
-    node, outcome, inval, up = _replay(cfg, trace, device, mode, chunk,
-                                       failures, block_events)
-    result = build_result(cfg, trace, node, outcome,
-                          cloud_cold_draws(len(trace), cfg.cloud_cold_prob,
-                                           rng_seed))
-    if failures is None:
-        return result, {}
-    return result, {"invalidated": inval, "node_up": up}
+    ccold = cloud_cold_draws(len(trace), cfg.cloud_cold_prob, rng_seed)
+    node, outcome, extras = _replay(cfg, trace, device, mode, chunk,
+                                    failures, block_events, telemetry,
+                                    chains, ccold)
+    return build_result(cfg, trace, node, outcome, ccold), extras
 
 
 class AutoscaleInputs(NamedTuple):
@@ -472,11 +772,15 @@ def _epoch_end(carry, frac: torch.Tensor, inputs: AutoscaleInputs,
 class _HostCarry:
     """The host loop's carry for the epoch loop, with the block
     runner's interface (``run_chunk``, ``commit``) on tensors that are
-    rebound rather than written in place."""
+    rebound rather than written in place.  ``chain`` (a
+    :class:`ChainAcc`) and ``sink`` (a :class:`TelSink`) are the run's,
+    when chains and telemetry are on."""
 
     def __init__(self, step, pools: PoolState, active: torch.Tensor,
-                 n_nodes: int):
+                 n_nodes: int, chain: ChainAcc | None = None,
+                 sink: TelSink | None = None):
         self.step, self.pools, self.n_nodes = step, pools, n_nodes
+        self.chain, self.sink = chain, sink
         dev = active.device
         self.active = active
         self.press = torch.zeros((n_nodes, 2), dtype=torch.float32,
@@ -484,11 +788,15 @@ class _HostCarry:
         self.dropw = torch.zeros(1, dtype=torch.float32, device=dev)
         self.inval = torch.zeros(n_nodes, dtype=torch.int32, device=dev)
 
-    def run_chunk(self, events, up, recover, node, outcome) -> None:
+    def run_chunk(self, events, up, recover, node, outcome, base=0,
+                  cx=None, inval=None, miss=None) -> None:
         self.pools, self.inval = _run_events(
             self.step, self.pools, self.inval, events, up, recover, node,
             outcome, self.n_nodes, node.shape[0],
-            Pressure(self.active, self.press, self.dropw))
+            Pressure(self.active, self.press, self.dropw),
+            None if cx is None else (self.chain, cx),
+            EventOut(inval, miss,
+                     None if self.sink is None else self.sink.at_ends(base)))
 
     def commit(self, pools, active, cnt) -> None:
         self.pools, self.active = pools, active
@@ -503,10 +811,16 @@ def _epochs(n_events: int, epoch_events: int) -> list[tuple[int, int]]:
 
 def _replay_autoscale(cfg: ClusterConfig, asc: Autoscale, trace: Trace,
                       device, mode: str, failures: Failures | None,
-                      block_events: int | None = None):
+                      block_events: int | None = None,
+                      window: int | None = None,
+                      plan: ChainPlan | None = None,
+                      ccold: np.ndarray | None = None):
     """Run the autoscaled trace; returns ``(node i32[T], outcome i32[T],
-    fracs f32[E, N], active bool[E, N], invalidated i64[N], node_up
-    bool[T, N] or None)`` on the host.
+    fracs f32[E, N], extras)`` on the host, ``extras`` holding the
+    membership ``active`` bool[E, N], ``invalidated`` i64[N],
+    ``node_up`` (bool[T, N] or ``None``) and, when on, ``telemetry``
+    (retirements in the window of their epoch's last event) and
+    ``chains``.
 
     A CPU run without ``block_events`` is the host loop; every other run
     steps each epoch as one chunk of the block runner (on the card, each
@@ -515,77 +829,99 @@ def _replay_autoscale(cfg: ClusterConfig, asc: Autoscale, trace: Trace,
     from . import graphs
     n, t_len = cfg.n_nodes, len(trace)
     failing = failures is not None
-    masks = _failure_masks(failures, trace, n) if failing else None
+    tel_on, ch_on = window is not None, plan is not None
     spans = _epochs(t_len, asc.epoch_events)
     with sync_point(device):
+        data = _run_data(trace, n, failures, plan, ccold, device)
+        sink = TelSink(window, t_len, n, device) if tel_on else None
         pools, routing, unified, cloud = _run_inputs(cfg, device)
         inputs = _autoscale_inputs(cfg, asc, device)
         ev = ClusterEvent(*_upload(_host_events(trace, n), 0, t_len, device))
-        up, rec = (_upload(masks, 0, t_len, device) if failing
+        up, rec = (_upload(data.masks, 0, t_len, device) if failing
                    else (None, None))
-        node = torch.empty(t_len, dtype=torch.int32, device=device)
-        outcome = torch.empty_like(node)
+        cx = ChainXs(*_upload(data.cx, 0, t_len, device)) if ch_on else None
+        node, outcome, inval_ev, miss_ev = _outputs(t_len, failing, tel_on,
+                                                    ch_on, device)
         fracs = torch.empty((len(spans), n), dtype=torch.float32,
                             device=device)
         actives = torch.empty((len(spans), n), dtype=torch.bool,
                               device=device)
+        retired = torch.zeros(len(spans), dtype=torch.int32, device=device)
         n_full = torch.full((), float(asc.epoch_events),
                             dtype=torch.float32, device=device)
         if device.type == "cpu" and block_events is None:
             carry = _HostCarry(
                 _make_step(routing, unified, cloud, n, mode), pools,
-                inputs.active0, n)
+                inputs.active0, n,
+                _chain_acc(data.deadline, cloud) if ch_on else None, sink)
         else:
-            carry = graphs.block_runner(device, n, cfg.max_slots, mode,
-                                        failing, block_events,
-                                        autoscaled=True)
-            carry.load(pools, routing, unified, cloud, inputs.active0)
+            carry = graphs.block_runner(
+                device, n, cfg.max_slots, mode, failing, block_events,
+                autoscaled=True, tel=tel_on,
+                chains=plan.n_chains if ch_on else 0)
+            carry.load(pools, routing, unified, cloud, inputs.active0,
+                       data.deadline, sink)
     frac = inputs.frac0
+
+    def cut(a, s, e):
+        return None if a is None else a[s:e]
     for k, (s, e) in enumerate(spans):
         carry.press.zero_()
         carry.dropw.zero_()
-        carry.run_chunk(ClusterEvent(*(a[s:e] for a in ev)),
-                        None if up is None else up[s:e],
-                        None if rec is None else rec[s:e],
-                        node[s:e], outcome[s:e])
+        carry.run_chunk(ClusterEvent(*(a[s:e] for a in ev)), cut(up, s, e),
+                        cut(rec, s, e), node[s:e], outcome[s:e], s,
+                        None if cx is None else ChainXs(*(a[s:e] for a in cx)),
+                        cut(inval_ev, s, e), cut(miss_ev, s, e))
         if e - s == asc.epoch_events:
+            if tel_on:
+                before = carry.inval.sum(dtype=torch.int32)
             frac = _epoch_end(carry, frac, inputs, unified,
                               ev.t[s:e].amax(), n_full)
+            if tel_on:
+                retired[k:k + 1].copy_(
+                    carry.inval.sum(dtype=torch.int32) - before)
         fracs[k].copy_(frac)
         actives[k].copy_(carry.active)
     with sync_point(device):
-        out = (node.cpu().numpy(), outcome.cpu().numpy(),
-               fracs.cpu().numpy(), actives.cpu().numpy(),
-               carry.inval.cpu().numpy().astype(np.int64))
-    return out + (masks[0] if failing else None,)
-
-
-def _autoscale_extras(actives, inval, up, failures) -> dict:
-    return {"invalidated": np.asarray(inval, np.int64),
-            "node_up": up if failures is not None else None,
-            "active": np.asarray(actives, bool)}
+        outcome_np, actives_np = outcome.cpu().numpy(), actives.cpu().numpy()
+        active_ev = None
+        if tel_on:
+            rows = np.concatenate([inputs.active0.cpu().numpy()[None],
+                                   actives_np[:-1]]).sum(1)
+            active_ev = np.repeat(rows, asc.epoch_events)[:t_len]
+        extras = _extras(trace, outcome_np, data, window, plan, sink,
+                         carry.chain, inval_ev, miss_ev, active_ev,
+                         [(e, int(c)) for (_, e), c in
+                          zip(spans, retired.cpu().numpy()) if c])
+        extras.update(
+            invalidated=carry.inval.cpu().numpy().astype(np.int64),
+            node_up=data.masks[0] if failing else None, active=actives_np)
+        return (node.cpu().numpy(), outcome_np, fracs.cpu().numpy(),
+                extras)
 
 
 def _simulate_cluster_autoscale(cfg: ClusterConfig, asc: Autoscale,
                                 trace: Trace, device, rng_seed: int = 0,
                                 mode: str = "gather",
                                 failures: Failures | None = None,
-                                block_events: int | None = None):
+                                block_events: int | None = None,
+                                telemetry: int | None = None,
+                                chains: ChainPlan | None = None):
     """One autoscaled run on ``device`` (``None`` is the CUDA device),
     with or without ``failures``: ``(ClusterResult, fracs f32[E, N],
     extras)``, where ``extras`` holds the membership trajectory
     ``active`` bool[E, N], ``invalidated`` i64[N] (recoveries and
-    retirements) and ``node_up`` (``None`` without failures).
-    ``block_events`` sends a CPU run through the block runner with that
-    block length (on the card it overrides ``BLOCK_EVENTS``)."""
+    retirements), ``node_up`` (``None`` without failures) and, when
+    asked for, ``telemetry`` and ``chains``.  ``block_events`` sends a
+    CPU run through the block runner with that block length (on the
+    card it overrides ``BLOCK_EVENTS``)."""
     check_step_mode(mode)
     device = resolve_device(device)
-    node, outcome, fracs, actives, inval, up = _replay_autoscale(
-        cfg, asc, trace, device, mode, failures, block_events)
-    result = build_result(cfg, trace, node, outcome,
-                          cloud_cold_draws(len(trace), cfg.cloud_cold_prob,
-                                           rng_seed))
-    return result, fracs, _autoscale_extras(actives, inval, up, failures)
+    ccold = cloud_cold_draws(len(trace), cfg.cloud_cold_prob, rng_seed)
+    node, outcome, fracs, extras = _replay_autoscale(
+        cfg, asc, trace, device, mode, failures, block_events, telemetry,
+        chains, ccold)
+    return build_result(cfg, trace, node, outcome, ccold), fracs, extras
 
 
 # The reference's four entry points, with its return shapes.

@@ -32,6 +32,22 @@ the resized pools, the membership and the retirement's count back into
 the same storage (:meth:`BlockRunner.commit`), so the next replay reads
 them.
 
+With telemetry on (``tel=True``) the block also writes, for each of
+its K events, the state after it into fixed ``[K, N]`` rows (free MB
+and residents per node) and, with failures, the residents the event's
+recovery invalidated into a ``[K]`` row; after each replay the runner
+copies the rows of the events that end a window into the run's
+:class:`~repro_torch.cluster.engine.TelSink` (positions the host knows
+from global event indices), so no ``[W, ...]`` window tensor, whose
+shape is the run's, is in the graph.  With chains on (``chains=C``) the
+chain state the step reads before it routes (each chain's latency so
+far, drop flag and deadline) lives in fixed tensors of a capacity that
+rounds ``C`` up to a power of two (at least :data:`MIN_CHAIN_CAP`), so
+a trace with about as many chains replays the same graph; the block
+reads each event's chain row, stage, final-stage flag and cloud cold
+flip from ``[K]`` input buffers and writes its miss flag into a ``[K]``
+output buffer.
+
 Runners are cached like ``jax.jit``'s programs, keyed on every Python
 value the captured step closes over (:func:`block_runner`).  Warm-up and
 capture happen when an entry is made, on its own tensors, before any
@@ -48,8 +64,8 @@ import torch
 from ..core.continuum import ClusterConfig
 from ..core.pool import get_step_backend
 from ..core.registry import REPLACEMENT, ROUTING
-from .engine import (ClusterEvent, Pressure, _make_step, _run_events,
-                     init_cluster)
+from .engine import (ChainAcc, ChainXs, ClusterEvent, EventOut, Pressure,
+                     _make_step, _run_events, _snapshot, init_cluster)
 
 #: Events one graph replay steps.  Replay time per event barely depends
 #: on it (the device runs the same kernels; a block's copies and launch
@@ -63,6 +79,9 @@ BLOCK_EVENTS = 32
 WARMUP_EVENTS = 2
 #: Runners kept (each holds a graph and its private memory pool).
 CACHE_SIZE = 8
+#: The least chain capacity a runner is made with: traces of up to this
+#: many chains share one cache entry.
+MIN_CHAIN_CAP = 64
 
 #: Run counters, for the tests and ``chip_smoke.py``: ``blocks`` full
 #: blocks run (on CUDA each is one graph replay), ``eager_events`` the
@@ -79,6 +98,14 @@ def _b1():
     return evict_place_cuda
 
 
+def chain_capacity(n_chains: int) -> int:
+    """The chain rows a runner holds for a run of ``n_chains`` chains
+    (0: chains off): a power of two, at least :data:`MIN_CHAIN_CAP`."""
+    if not n_chains:
+        return 0
+    return max(MIN_CHAIN_CAP, 1 << (int(n_chains) - 1).bit_length())
+
+
 class BlockRunner:
     """K events of one cluster shape and step mode as one replayable
     block; see the module docstring.  Not re-entrant: one run at a
@@ -86,12 +113,14 @@ class BlockRunner:
 
     def __init__(self, device: torch.device, n_nodes: int, max_slots: int,
                  mode: str, failing: bool, block: int,
-                 autoscaled: bool = False):
+                 autoscaled: bool = False, tel: bool = False,
+                 chain_cap: int = 0):
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
         n, k, dev = n_nodes, block, device
         self.device, self.n_nodes, self.block = dev, n, k
         self.failing, self.autoscaled = failing, autoscaled
+        self.tel, self.chain_cap = tel, chain_cap
         self.routing = torch.zeros(1, dtype=torch.int64, device=dev)
         self.unified = torch.zeros(n, dtype=torch.bool, device=dev)
         self.cloud = torch.zeros(2, dtype=torch.float32, device=dev)
@@ -110,6 +139,28 @@ class BlockRunner:
         self.recover = torch.zeros((k, n), dtype=torch.bool, device=dev)
         self.node = torch.zeros(k, dtype=i32, device=dev)
         self.outcome = torch.zeros(k, dtype=i32, device=dev)
+        # telemetry rows: the state after each event of the block
+        self.snap_free = self.snap_occ = self.sink = None
+        if tel:
+            self.snap_free = torch.zeros((k, n), dtype=f32, device=dev)
+            self.snap_occ = torch.zeros((k, n), dtype=i32, device=dev)
+        # chains: the per-chain state and the per-event chain data
+        self.chain = self.cx = None
+        if chain_cap:
+            self.chain = ChainAcc(
+                lat=torch.zeros(chain_cap, dtype=f32, device=dev),
+                dropped=torch.zeros(chain_cap, dtype=torch.bool, device=dev),
+                deadline=torch.full((chain_cap,), float("inf"), dtype=f32,
+                                    device=dev),
+                rtt=self.cloud[0])
+            self.cx = ChainXs(*(torch.zeros(k, dtype=dt, device=dev)
+                                for dt in (torch.int64, i32, torch.bool,
+                                           torch.bool)))
+        self.out = EventOut(
+            torch.zeros(k, dtype=i32, device=dev) if tel and failing
+            else None,
+            torch.zeros(k, dtype=i32, device=dev) if chain_cap else None,
+            self._snap_row if tel else None)
         self.step = _make_step(self.routing, self.unified, self.cloud, n,
                                mode)
         self.graph = None
@@ -117,16 +168,23 @@ class BlockRunner:
         if dev.type == "cuda":
             self._capture()
 
-    def _advance(self, events, up, recover, node, outcome, count: int):
+    def _snap_row(self, i: int, pools) -> None:
+        _snapshot(pools, self.n_nodes, self.snap_free[i], self.snap_occ[i])
+
+    def _advance(self, events, up, recover, node, outcome, count: int,
+                 cx=None, out=None):
         """Step ``count`` events from ``events`` on the carry, writing
-        ``node``/``outcome``, and leave the final state in the carry."""
+        ``node``/``outcome`` (and ``out``'s per-event outputs, with ``cx``
+        the events' chain data), and leave the final state in the
+        carry."""
         if not self.failing:
             up = recover = None
         acc = (Pressure(self.active, self.press, self.dropw)
                if self.autoscaled else None)
         pools, inval = _run_events(
             self.step, self.pools, self.inval, events, up, recover, node,
-            outcome, self.n_nodes, count, acc)
+            outcome, self.n_nodes, count, acc,
+            None if cx is None else (self.chain, cx), out)
         self._store(pools, inval)
 
     def _store(self, pools, inval) -> None:
@@ -137,9 +195,10 @@ class BlockRunner:
         if inval is not self.inval:
             self.inval.copy_(inval)
 
-    def _buffers(self):
+    def _buffers(self, count: int) -> tuple:
+        """``_advance``'s arguments for one block of the fixed buffers."""
         return (self.events, self.up, self.recover, self.node,
-                self.outcome)
+                self.outcome, count, self.cx, self.out)
 
     def _capture(self) -> None:
         """Warm up on a side stream, then capture one block (on the
@@ -149,13 +208,12 @@ class BlockRunner:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self._advance(*self._buffers(),
-                          min(WARMUP_EVENTS, self.block))
+            self._advance(*self._buffers(min(WARMUP_EVENTS, self.block)))
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         warm = b1.launches
         with torch.cuda.graph(graph):
-            self._advance(*self._buffers(), self.block)
+            self._advance(*self._buffers(self.block))
         torch.cuda.synchronize(self.device)
         # the wrapper counted its calls during capture; those kernels run
         # at each replay, and the warm-up's ran on no run's state
@@ -165,9 +223,12 @@ class BlockRunner:
         STATS["captures"] += 1
         STATS["capture_s"] += time.perf_counter() - t0
 
-    def load(self, pools, routing, unified, cloud, active=None) -> None:
-        """Copy a run's initial state and inputs into the fixed tensors
-        (an autoscaled run also gives its starting membership)."""
+    def load(self, pools, routing, unified, cloud, active=None,
+             deadline=None, sink=None) -> None:
+        """Copy a run's initial state and inputs into the fixed tensors:
+        an autoscaled run also gives its starting membership, a run with
+        chains its deadlines f32[C] (its chain rows start at zero), and a
+        run with telemetry its :class:`~repro_torch.cluster.engine.TelSink`."""
         for a, b in zip(self.pools, pools):
             if a is not None:
                 a.copy_(b)
@@ -177,6 +238,15 @@ class BlockRunner:
         self.inval.zero_()
         if self.autoscaled:
             self.active.copy_(active)
+        if self.chain is not None:
+            c = deadline.shape[0]
+            if c > self.chain_cap:
+                raise ValueError(f"{c} chains exceed the runner's "
+                                 f"capacity of {self.chain_cap}")
+            self.chain.lat.zero_()
+            self.chain.dropped.zero_()
+            self.chain.deadline[:c].copy_(deadline)
+        self.sink = sink
 
     def commit(self, pools, active, cnt) -> None:
         """Take the state the autoscaler left between two epochs: the
@@ -187,16 +257,30 @@ class BlockRunner:
 
     def _run_block(self) -> None:
         if self.graph is None:
-            self._advance(*self._buffers(), self.block)
+            self._advance(*self._buffers(self.block))
         else:
             self.graph.replay()
             _b1().launches += self.launches_per_block
         STATS["blocks"] += 1
 
+    def _fold(self, b0: int) -> None:
+        """Copy the snapshot rows of the block's window-ending events
+        (the block's first is global event ``b0``) into the sink."""
+        sink = self.sink
+        for j in sink.ends(b0, b0 + self.block):
+            w = j // sink.window
+            sink.free[w].copy_(self.snap_free[j - b0])
+            sink.occ[w].copy_(self.snap_occ[j - b0])
+
     def run_chunk(self, events: ClusterEvent, up, recover,
-                  node: torch.Tensor, outcome: torch.Tensor) -> None:
+                  node: torch.Tensor, outcome: torch.Tensor, base: int = 0,
+                  cx: ChainXs | None = None, inval=None, miss=None) -> None:
         """Step one uploaded chunk (``[c]`` events; ``[c, N]`` masks with
-        failures) from the carry, writing ``node``/``outcome`` i32[c]."""
+        failures; ``cx`` its chain data with chains) from the carry,
+        writing ``node``/``outcome`` i32[c] and, when given, the
+        per-event recovery invalidations ``inval`` and chain misses
+        ``miss`` i32[c].  ``base`` is the global index of the chunk's
+        first event (telemetry's windows)."""
         c, k = node.shape[0], self.block
         full = c - c % k
         for s in range(0, full, k):
@@ -205,40 +289,56 @@ class BlockRunner:
             if self.failing:
                 self.up.copy_(up[s:s + k])
                 self.recover.copy_(recover[s:s + k])
+            if cx is not None:
+                for dst, src in zip(self.cx, cx):
+                    dst.copy_(src[s:s + k])
             self._run_block()
             node[s:s + k].copy_(self.node)
             outcome[s:s + k].copy_(self.outcome)
+            for dst, src in ((inval, self.out.inval), (miss, self.out.miss)):
+                if dst is not None:
+                    dst[s:s + k].copy_(src)
+            if self.sink is not None:
+                self._fold(base + s)
         if full < c:
+            def rest(a):
+                return None if a is None else a[full:]
             self._advance(
-                ClusterEvent(*(a[full:] for a in events)),
-                None if up is None else up[full:],
-                None if recover is None else recover[full:],
-                node[full:], outcome[full:], c - full)
+                ClusterEvent(*(a[full:] for a in events)), rest(up),
+                rest(recover), node[full:], outcome[full:], c - full,
+                None if cx is None else ChainXs(*(a[full:] for a in cx)),
+                EventOut(rest(inval), rest(miss),
+                         None if self.sink is None
+                         else self.sink.at_ends(base + full)))
             STATS["eager_events"] += c - full
 
 
 @functools.lru_cache(maxsize=CACHE_SIZE)
 def _cached(device, n_nodes, max_slots, mode, failing, block, autoscaled,
-            routing_specs, replacement_specs) -> BlockRunner:
+            tel, chain_cap, routing_specs, replacement_specs) -> BlockRunner:
     return BlockRunner(device, n_nodes, max_slots, mode, failing, block,
-                       autoscaled)
+                       autoscaled, tel, chain_cap)
 
 
 def block_runner(device, n_nodes: int, max_slots: int, mode: str,
                  failing: bool, block: int | None = None,
-                 autoscaled: bool = False) -> BlockRunner:
+                 autoscaled: bool = False, tel: bool = False,
+                 chains: int = 0) -> BlockRunner:
     """The cached runner for this cluster shape and step mode.
 
     The key holds every Python value the captured step closes over: the
     device, ``n_nodes`` and ``max_slots`` (the shapes), ``mode`` (which
     names the step backend), whether failures are on, the block length,
-    whether the run is autoscaled (the live mask and the pressure), and
-    the registered routing and replacement policies (the step runs
-    every registered routing body and ``where``-chains every replacement
-    priority, so registering a policy makes a new entry).  Everything
-    else a run differs in (routing code, ``unified``, ``cloud``,
-    capacities, policy codes, membership) is data in the runner's fixed
-    tensors."""
+    whether the run is autoscaled (the live mask and the pressure),
+    whether telemetry is on (the snapshot rows), the chain capacity
+    (:func:`chain_capacity` of the run's ``chains``, 0 with chains off:
+    the chain state's shape), and the registered routing and
+    replacement policies (the step runs every registered routing body
+    and ``where``-chains every replacement priority, so registering a
+    policy makes a new entry).  Everything else a run differs in
+    (routing code, ``unified``, ``cloud``, capacities, policy codes,
+    membership, deadlines, the window length and the trace's length) is
+    data in the runner's fixed tensors or on the host."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -246,4 +346,5 @@ def block_runner(device, n_nodes: int, max_slots: int, mode: str,
         get_step_backend(mode)          # unknown names fail here
     return _cached(device, n_nodes, max_slots, mode, bool(failing),
                    BLOCK_EVENTS if block is None else int(block),
-                   bool(autoscaled), ROUTING.specs(), REPLACEMENT.specs())
+                   bool(autoscaled), bool(tel), chain_capacity(chains),
+                   ROUTING.specs(), REPLACEMENT.specs())

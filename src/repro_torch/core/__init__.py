@@ -5,13 +5,15 @@ from .types import (DROP, HIT, LARGE, MISS, SMALL, ClassMetrics, KissConfig,
 from .registry import (REPLACEMENT, ROUTING, PolicySpec, RouteCtx,
                        SlotStats, register_replacement, register_routing,
                        replacement_policies, routing_policies)
-from .continuum import (Autoscale, ClusterConfig, ContinuumResult,
-                        Failures, RoutingPolicy)
+from .continuum import (Autoscale, ChainPlan, ClusterConfig,
+                        ContinuumResult, Failures, RoutingPolicy,
+                        compile_chains)
 
 __all__ = [
-    "Autoscale", "DROP", "HIT", "LARGE", "MISS", "SMALL", "ClassMetrics",
-    "ClusterConfig", "ContinuumResult", "Failures", "KissConfig", "Policy",
+    "Autoscale", "ChainPlan", "DROP", "HIT", "LARGE", "MISS", "SMALL",
+    "ClassMetrics", "ClusterConfig", "ContinuumResult", "Failures", "KissConfig", "Policy",
     "PolicySpec", "PoolConfig", "REPLACEMENT", "ROUTING", "RouteCtx", "RoutingPolicy",
     "SimResult", "SlotStats", "Trace", "register_replacement",
-    "register_routing", "replacement_policies", "routing_policies",
+    "register_routing", "compile_chains", "replacement_policies",
+    "routing_policies",
 ]

@@ -5,14 +5,15 @@ copied byte for byte because they are shared verbatim with the
 reference: ``ClusterConfig`` (with ``pool_caps``), the routing hashes,
 the pre-drawn cloud cold-start coins, the end-to-end pricing, the
 failure schedule (``Failures``, compiled on the host into per-event
-masks) and the autoscaler's knob (``Autoscale``).  The numpy oracle
-(``cluster_outcomes_ref``) and chain plans are not ported yet (ROADMAP
-A10, A14).
+masks), the autoscaler's knob (``Autoscale``) and the chain plan
+(``ChainPlan``, ``compile_chains``).  The numpy oracle
+(``cluster_outcomes_ref``) is not ported yet (ROADMAP A14).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import NamedTuple
 
 import numpy as np
 
@@ -248,6 +249,64 @@ def continuum_latencies(trace: Trace, outcome: np.ndarray,
     return np.where(outcome == HIT, warm,
                     np.where(outcome == MISS, cold,
                              cloud_rtt_s + np.where(cloud_cold, cold, warm)))
+
+
+# --------------------------------------------------------------------------
+# function chains: the host-compiled plan (the reference's, copied)
+# --------------------------------------------------------------------------
+
+class ChainPlan(NamedTuple):
+    """Chain accounting data compiled host-side from a chained ``Trace``.
+
+    Per-event arrays index the *dense* chain rows ``0..n_chains-1``
+    (``chain_id`` values are mapped through ``np.unique``).  ``deadline``
+    carries the reference's junk row appended (``+inf``), which the
+    reference's pad events index; the port pads no event, so its engine
+    reads rows ``0..n_chains-1`` only.  The arrays are the reference's
+    byte for byte (copied, as is :func:`compile_chains`).
+    """
+
+    cid: np.ndarray       # i32[T] dense chain row per event
+    stage: np.ndarray     # i32[T] 0-based stage within the chain
+    last: np.ndarray      # bool[T] event is its chain's final stage
+    deadline: np.ndarray  # f32[C+1] per-chain deadline incl. junk row
+    n_chains: int
+
+
+def compile_chains(trace: Trace, deadline_s: float | None = None,
+                   slack: float | None = None) -> ChainPlan:
+    """Compile a chained trace into a :class:`ChainPlan`.
+
+    ``deadline_s`` is an absolute per-chain deadline in seconds;
+    ``slack`` instead derives each chain's deadline as ``slack x`` the
+    chain's warm-duration sum (the all-warm critical path, accumulated
+    in float32 as the reference does, so the deadline's last bit is
+    the reference's).
+    With neither, deadlines are ``+inf``: chains are tracked (latency,
+    drops) but can only miss by dropping a stage — never by time.
+    """
+    if not trace.has_chains:
+        raise ValueError("compile_chains needs a chained trace "
+                         "(Trace.chain_id/stage/chain_len set) — "
+                         "e.g. repro_torch.workloads.chained_trace")
+    if deadline_s is not None and slack is not None:
+        raise ValueError("pass deadline_s or slack, not both")
+    uniq, inv = np.unique(np.asarray(trace.chain_id), return_inverse=True)
+    n_chains = len(uniq)
+    cid = inv.astype(np.int32)
+    stage = np.asarray(trace.stage, np.int32)
+    last = stage == np.asarray(trace.chain_len, np.int32) - 1
+    if deadline_s is not None:
+        dl = np.full(n_chains, np.float32(deadline_s), np.float32)
+    elif slack is not None:
+        warm_sum = np.zeros(n_chains, np.float32)
+        np.add.at(warm_sum, cid, np.asarray(trace.warm_dur, np.float32))
+        dl = (np.float32(slack) * warm_sum).astype(np.float32)
+    else:
+        dl = np.full(n_chains, np.inf, np.float32)
+    deadline = np.concatenate([dl, np.full(1, np.inf, np.float32)])
+    return ChainPlan(cid=cid, stage=stage, last=last, deadline=deadline,
+                     n_chains=n_chains)
 
 
 @dataclasses.dataclass

@@ -36,8 +36,8 @@ class Trace(NamedTuple):
     """Struct-of-arrays invocation trace, sorted by time.
 
     The three chain fields are ``None`` for chainless traces and are
-    all-or-none.  The port's engine ignores them (chains are ROADMAP
-    A10); they exist so a reference ``repro.core.types.Trace`` converts
+    all-or-none; ``Scenario(..., chains=...)`` reads them (``chained_trace``
+    sets them), and a reference ``repro.core.types.Trace`` converts
     field for field (``Trace(*reference_trace)``)."""
 
     t: np.ndarray          # f32[N] event time (seconds)

@@ -21,14 +21,17 @@ from ..core.registry import (REPLACEMENT, ROUTING, PolicySpec, RouteCtx,
                              SlotStats, register_replacement,
                              register_routing, replacement_policies,
                              routing_policies)
-from .api import simulate, trace_fingerprint
+from .api import simulate
+from .chains import ChainMetrics, Chains
 from .result import SUMMARY_KEYS, Result
 from .scenario import Scenario
+from .telemetry import Telemetry, TelemetrySeries, trace_fingerprint
 from . import policies  # registers cost_model, slack_aware  # noqa: F401
 
 __all__ = [
-    "Autoscale", "Failures", "REPLACEMENT", "ROUTING", "PolicySpec", "Result", "RouteCtx",
-    "SUMMARY_KEYS", "Scenario", "SlotStats", "register_replacement",
-    "register_routing", "replacement_policies", "routing_policies",
-    "simulate", "trace_fingerprint",
+    "Autoscale", "ChainMetrics", "Chains", "Failures", "REPLACEMENT",
+    "ROUTING", "PolicySpec", "Result", "RouteCtx", "SUMMARY_KEYS",
+    "Scenario", "SlotStats", "Telemetry", "TelemetrySeries",
+    "register_replacement", "register_routing", "replacement_policies",
+    "routing_policies", "simulate", "trace_fingerprint",
 ]

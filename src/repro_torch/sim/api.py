@@ -6,14 +6,12 @@
 mode is one of ``STEP_MODES`` (``"gather"``, ``"vmap"``, ``"fused"``),
 all bitwise equal; ``"fused"`` runs the hand-written CUDA kernel of
 ``repro_torch.kernels.pool_step`` on a CUDA device and its plain torch
-version on the CPU.  A scenario with ``failures`` or ``autoscale``
-and a run with ``chunk_events`` give bitwise the reference's results.
-Not ported yet: ``sweep`` (ROADMAP A12) and the numpy oracle
-``engine="ref"`` (A14).
+version on the CPU.  A scenario with ``failures``, ``autoscale``,
+``telemetry`` or ``chains`` and a run with ``chunk_events`` give bitwise
+the reference's results.  Not ported yet: ``sweep`` (ROADMAP A12) and
+the numpy oracle ``engine="ref"`` (A14).
 """
 from __future__ import annotations
-
-import hashlib
 
 import numpy as np
 
@@ -21,26 +19,32 @@ from .._device import resolve_device
 from ..cluster.engine import (_simulate_cluster, _simulate_cluster_autoscale,
                               check_chunk_events, check_step_mode)
 from ..core.types import Trace
+from .chains import metrics_from_arrays
 from .result import Result
 from .scenario import Scenario
+from .telemetry import series_from_arrays, trace_fingerprint
 
 _ENGINES = ("torch",)
 
 
-def trace_fingerprint(trace) -> str:
-    """Deterministic identity of a trace: blake2s over every array's
-    bytes + dtype + shape (a copy of ``repro.sim.telemetry``'s, so both
-    packages fingerprint a trace alike)."""
-    h = hashlib.blake2s()
-    for name, arr in zip(trace._fields, trace):
-        if arr is None:
-            continue
-        a = np.ascontiguousarray(arr)
-        h.update(name.encode())
-        h.update(str(a.dtype).encode())
-        h.update(str(a.shape).encode())
-        h.update(a.tobytes())
-    return h.hexdigest()
+def _telw(scenario: Scenario) -> int | None:
+    """The scenario's telemetry window length (``None``: telemetry off),
+    the engine-level form of the :class:`Telemetry` knob."""
+    t = scenario.telemetry
+    return t.window_events if t is not None else None
+
+
+def _chain_plan(scenario: Scenario, trace: Trace):
+    """Compile the scenario's :class:`Chains` knob against ``trace``
+    into the engine-level ``ChainPlan`` (``None``: chains off)."""
+    if scenario.chains is None:
+        return None
+    if not trace.has_chains:
+        raise ValueError(
+            "Scenario(..., chains=...) needs a chained trace "
+            "(Trace.chain_id/stage/chain_len set) — e.g. "
+            "repro_torch.workloads.chained_trace")
+    return scenario.chains.compile(trace)
 
 
 def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
@@ -59,7 +63,10 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
     (``ValueError``, as in the reference).  A scenario with ``failures``
     also fills ``Result.node_up`` and ``Result.invalidated``; an
     autoscaled one fills the epoch trajectories ``Result.fracs``,
-    ``active`` and ``epoch_t`` (and ``invalidated``: retirements).  ``device`` is where the run happens:
+    ``active`` and ``epoch_t`` (and ``invalidated``: retirements); one
+    with ``telemetry`` fills ``Result.telemetry`` (``timeline()``), and
+    one with ``chains``, on a chained trace, ``Result.chains``
+    (``chain_metrics()``).  ``device`` is where the run happens:
     ``None`` means ``"cuda"``."""
     if engine == "ref":
         raise NotImplementedError(
@@ -75,15 +82,19 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
             "chunk_events does not compose with autoscale: an autoscaled "
             "run already steps one epoch at a time; drop chunk_events or "
             "the Autoscale")
+    telw = _telw(scenario)
+    plan = _chain_plan(scenario, trace)
     dev = resolve_device(device)
     cfg = scenario.to_cluster_config()
     fracs = ep_t = None
     if asc is None:
         raw, extras = _simulate_cluster(cfg, trace, dev, rng_seed, mode,
-                                        chunk, scenario.failures)
+                                        chunk, scenario.failures,
+                                        telemetry=telw, chains=plan)
     else:
         raw, fracs, extras = _simulate_cluster_autoscale(
-            cfg, asc, trace, dev, rng_seed, mode, scenario.failures)
+            cfg, asc, trace, dev, rng_seed, mode, scenario.failures,
+            telemetry=telw, chains=plan)
         ep_t = _epoch_times(trace, asc.epoch_events)
     info = {"engine": engine, "mode": mode, "chunk_events": chunk,
             "devices": None, "device": str(dev), "rng_seed": rng_seed,
@@ -91,8 +102,12 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
     return Result(scenario=scenario, raw=raw, epoch_fracs=fracs,
                   epoch_active=extras.get("active"),
                   node_up=extras.get("node_up"),
-                  invalidated=extras.get("invalidated"), run_info=info,
-                  epoch_t=ep_t)
+                  invalidated=extras.get("invalidated"),
+                  telemetry=(None if telw is None else series_from_arrays(
+                      extras["telemetry"], trace, telw)),
+                  chains=(None if plan is None else metrics_from_arrays(
+                      extras["chains"], plan)),
+                  run_info=info, epoch_t=ep_t)
 
 
 def _epoch_times(trace: Trace, epoch_events: int) -> np.ndarray | None:

@@ -2,9 +2,9 @@
 ``repro.sim.result``).
 
 ``summary()`` returns every key of the reference's :data:`SUMMARY_KEYS`,
-in order.  The keys of features the port does not run yet (telemetry,
-chains, vertical scaling) take the inert values the reference reports
-when the feature is off.
+in order.  The keys of vertical scaling, which the port does not run yet
+(ROADMAP A11), take the inert values the reference reports when the
+feature is off.
 """
 from __future__ import annotations
 
@@ -15,7 +15,10 @@ import numpy as np
 from ..cluster.metrics import ClusterResult
 from ..core.continuum import ContinuumResult
 from ..core.types import ClassMetrics, SimResult
+from . import telemetry as _telemetry
+from .chains import ChainMetrics
 from .scenario import Scenario
+from .telemetry import TelemetrySeries
 
 #: The keys ``summary()`` always returns, in order — the reference's
 #: benchmark-stable contract (see ``repro.sim.result.SUMMARY_KEYS`` for
@@ -60,6 +63,12 @@ class Result:
     #: i64[N] residents invalidated per node by failure recovery or
     #: retirement (``None`` = neither ran; the views report zeros)
     invalidated: np.ndarray | None = None
+    #: the windowed time series (``None`` unless the scenario set
+    #: ``telemetry=``); see :class:`repro_torch.sim.telemetry.TelemetrySeries`
+    telemetry: TelemetrySeries | None = None
+    #: per-chain accounting (``None`` unless the scenario set
+    #: ``chains=``); see :class:`repro_torch.sim.chains.ChainMetrics`
+    chains: ChainMetrics | None = None
     #: how this run was executed: engine, mode, chunking, device, rng
     #: seed and the trace fingerprint
     run_info: dict | None = None
@@ -157,6 +166,60 @@ class Result:
     def as_cluster(self) -> ClusterResult:
         return self.raw
 
+    # -- observability views (repro_torch.sim.telemetry) -------------------
+    def timeline(self) -> TelemetrySeries:
+        """The windowed time series this run kept.
+
+        Raises ``ValueError`` unless the scenario enabled it:
+        ``Scenario(..., telemetry=Telemetry(window_events=N))`` (or just
+        ``telemetry=N``)."""
+        if self.telemetry is None:
+            raise ValueError(
+                "this run collected no telemetry — set "
+                "Scenario(..., telemetry=Telemetry(window_events=N)) "
+                "(or telemetry=N) and re-run")
+        return self.telemetry
+
+    def to_trace_events(self, path: str | None = None) -> dict:
+        """Chrome trace-event / Perfetto JSON for this run: counter
+        tracks per telemetry window plus outage and autoscale timeline
+        tracks.  Works without telemetry too (timeline tracks only);
+        ``path`` also writes the JSON to disk."""
+        return _telemetry.trace_events(self, path)
+
+    def manifest(self) -> dict:
+        """The structured run manifest (scenario hash, trace fingerprint,
+        engine, mode, chunking, device, versions, summary); see
+        :func:`repro_torch.sim.telemetry.run_manifest`."""
+        return _telemetry.run_manifest(self)
+
+    # -- chain views (repro_torch.sim.chains) ------------------------------
+    def chain_metrics(self) -> ChainMetrics:
+        """The per-chain accounting this run kept.
+
+        Raises ``ValueError`` unless the scenario enabled it
+        (``Scenario(..., chains=Chains(...))``) on a chained trace."""
+        if self.chains is None:
+            raise ValueError(
+                "this run tracked no chains — set "
+                "Scenario(..., chains=Chains(...)) on a chained trace "
+                "(Trace.has_chains) and re-run")
+        return self.chains
+
+    @property
+    def chain_latency(self) -> np.ndarray:
+        """f32[done] end-to-end latencies of the completed chains."""
+        return self.chain_metrics().chain_latency
+
+    @property
+    def chain_p95_s(self) -> float:
+        return self.chain_metrics().chain_p95_s
+
+    @property
+    def deadline_miss_pct(self) -> float:
+        """Percent of completed chains that missed their deadline."""
+        return self.chain_metrics().deadline_miss_pct
+
     # -- the benchmark-stable summary --------------------------------------
     def summary(self) -> dict:
         """Every key of :data:`SUMMARY_KEYS`, in order."""
@@ -183,11 +246,16 @@ class Result:
             "n_invalidated": self.n_invalidated,
             "n_active_final": int(self.active[-1].sum()),
             "n_active_min": int(self.n_active.min()),
-            "n_windows": 0,
-            "n_chains": 0,
-            "chain_latency_mean_s": 0.0,
-            "chain_p95_s": 0.0,
-            "deadline_miss_pct": 0.0,
+            "n_windows": (len(self.telemetry)
+                          if self.telemetry is not None else 0),
+            "n_chains": (self.chains.n_chains
+                         if self.chains is not None else 0),
+            "chain_latency_mean_s": (self.chains.chain_latency_mean_s
+                                     if self.chains is not None else 0.0),
+            "chain_p95_s": (self.chains.chain_p95_s
+                            if self.chains is not None else 0.0),
+            "deadline_miss_pct": (self.chains.deadline_miss_pct
+                                  if self.chains is not None else 0.0),
             "utilization_ratio": 0.0,
             "bottleneck_events": 0,
         })

@@ -13,9 +13,12 @@ The port runs static, failure-injected (``failures=`` a
 :class:`~repro_torch.core.continuum.Failures` or an iterable of
 ``(t_down, t_up, node)`` windows) and autoscaled scenarios
 (``autoscale=`` an :class:`~repro_torch.core.continuum.Autoscale` or a
-dict of its arguments); a scenario that sets ``telemetry``, ``chains``
-or ``resize`` raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+dict of its arguments), each with telemetry (``telemetry=`` a
+:class:`~repro_torch.sim.telemetry.Telemetry`, a window length in events
+or a dict) and function chains (``chains=`` a
+:class:`~repro_torch.sim.chains.Chains` or a dict); a scenario that sets
+``resize`` raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -27,10 +30,12 @@ import numpy as np
 
 from ..core.continuum import Autoscale, ClusterConfig, Failures
 from ..core.registry import REPLACEMENT, ROUTING
+from .chains import Chains
+from .telemetry import Telemetry
 
 #: Scenario knobs of the reference that the port does not run yet, with
 #: the ROADMAP item that ports each.
-NOT_PORTED = {"telemetry": "A9", "chains": "A10", "resize": "A11"}
+NOT_PORTED = {"resize": "A11"}
 
 
 def _is_seq(x) -> bool:
@@ -140,6 +145,26 @@ class Scenario:
                     f"[min_frac, max_frac] = [{asc.min_frac}, "
                     f"{asc.max_frac}]")
             object.__setattr__(self, "autoscale", asc)
+        if self.telemetry is not None:
+            t = self.telemetry
+            if isinstance(t, int) and not isinstance(t, bool):
+                t = Telemetry(window_events=t)
+            elif isinstance(t, dict):
+                t = Telemetry(**t)
+            if not isinstance(t, Telemetry):
+                raise ValueError(
+                    "telemetry must be a Telemetry, a window length in "
+                    f"events, a kwargs dict, or None, got {t!r}")
+            object.__setattr__(self, "telemetry", t)
+        if self.chains is not None:
+            c = self.chains
+            if isinstance(c, dict):
+                c = Chains(**c)
+            if not isinstance(c, Chains):
+                raise ValueError(
+                    "chains must be a Chains, a kwargs dict, or None, "
+                    f"got {c!r}")
+            object.__setattr__(self, "chains", c)
         # canonicalize policies to registered names (raises on unknown)
         object.__setattr__(
             self, "replacement",
@@ -198,8 +223,9 @@ class Scenario:
                 else "kiss" if self.n_nodes == 1 else "cluster")
         asc = "-autoscaled" if self.autoscale is not None else ""
         fail = "-failures" if self.failures is not None else ""
+        ch = "-chains" if self.chains is not None else ""
         return (f"{kind}-{self.n_nodes}n-{self.routing}"
-                f"-{self.replacement}{asc}{fail}")
+                f"-{self.replacement}{asc}{fail}{ch}")
 
     def to_cluster_config(self) -> ClusterConfig:
         """The engine-level config."""

@@ -194,8 +194,9 @@ def test_golden_digests_are_the_references(ref):
 
 def test_imports_without_jax_or_repro():
     """With ``jax`` unimportable, the port imports, runs tiny fused
-    static, failure-injected and autoscaled simulates on the CPU, and
-    never loads a ``repro`` module."""
+    static, failure-injected and autoscaled simulates and one with
+    telemetry and chains on the CPU, writes its manifest, and never
+    loads a ``repro`` module."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None          # any import of jax now fails
@@ -217,6 +218,21 @@ def test_imports_without_jax_or_repro():
                                                  "spawn_drop_frac": 0.05}),
                      tr, mode="fused", device="cpu")
         assert a.fracs.shape == (-(-len(tr) // 40), 2)
+        import os, tempfile
+        from repro_torch.sim import Chains
+        from repro_torch.sim.telemetry import write_manifest
+        from repro_torch.workloads import ChainConfig, chained_trace
+        ctr = chained_trace(ChainConfig(duration_s=20.0))
+        c = simulate(Scenario.cluster((512.0, 1024.0), max_slots=16,
+                                      telemetry=16, chains=Chains(slack=2.0),
+                                      routing="slack_aware"),
+                     ctr, mode="fused", chunk_events=30, device="cpu")
+        assert c.timeline().counts.sum() == len(ctr)
+        assert c.summary()["n_chains"] == c.chain_metrics().n_chains > 0
+        m = c.manifest()
+        assert "torch" in m["versions"] and "jax" not in m["versions"]
+        with tempfile.TemporaryDirectory() as d:
+            write_manifest(m, os.path.join(d, "m.json"))
         bad = sorted(m for m, v in sys.modules.items() if v is not None
                      and m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
