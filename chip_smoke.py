@@ -12,7 +12,8 @@ Phases, each printing its own lines:
    ``nvcc`` each, all at once (timed, with ``ptxas``'s report);
 3. kernel B1 against its plain torch version on tie-heavy quantized
    batches (``-0.0`` and ``+0.0`` priorities among them) at the
-   simulator's shapes and a ragged one, bitwise on every output, then
+   simulator's shapes (the vertical phase's ``[8, 128]`` among them) and
+   a ragged one, bitwise on every output, then
    timed per launch with CUDA events, and alone by the profiler, which
    must see its one kernel, ``evict_place_kernel``;
 4. kernels B3 (flash attention) and B2 (decode attention) against their
@@ -50,9 +51,9 @@ Phases, each printing its own lines:
    remainders, and B1 must launch once a fused event; every run must
    match the digests of the JAX reference (``GOLDEN`` and
    ``GOLDEN_FULL``, pinned by ``tests/test_torch_sim.py`` and
-   ``tests/test_torch_replay.py``), bitwise; a CPU ``gather`` run must
-   match them too; each run prints its events/s and the share of its
-   wall spent capturing;
+   ``tests/test_torch_replay.py``), bitwise; a CPU ``gather`` run over
+   the first ``CPU_EVENTS`` of the head must match them too; each run
+   prints its events/s and the share of its wall spent capturing;
    then the failure path: het16 with two node outages over the head
    (``FAIL_WINDOWS``), monolithic and in chunks of ``FAIL_CHUNK``, in
    every mode, held to ``GOLDEN_FAIL`` (digests, residents invalidated
@@ -73,10 +74,21 @@ Phases, each printing its own lines:
    stored trace in every mode, held to ``GOLDEN_TEL`` and
    ``GOLDEN_CHAIN`` (every window array, every per-chain array, the
    summary; pinned by ``tests/test_torch_{telemetry,chains}.py``); then
-   the device's busy share and device records an event over two graph
-   replays, for the static and the autoscaled runner and for telemetry
-   and chains on, with B1's kernel records in ``fused`` seen at most
-   once an event;
+   vertical scaling (``vertical_phase``): ``benchmarks/vertical.py``'s
+   cluster and lanes on the quickstart trace (the hybrid in every mode,
+   monolithic and chunked; the unified ``fair_share`` lane, the
+   ``static`` resize lane and no resize; the hybrid with outages,
+   autoscaled and with telemetry) and the hybrid over the benchmark's
+   whole Azure replay trace (192,047 events, stored) in chunks of
+   ``RZ_REPLAY_CHUNK``, held to ``GOLDEN_RZ`` (node, outcome, the
+   summary with ``utilization_ratio`` and ``bottleneck_events``, the
+   three ``Result.vertical`` arrays, every window array; pinned by
+   ``tests/test_torch_vertical.py``), with the ``static`` lane equal to
+   no resize, bottleneck events in every ``fair_share`` run and resize's
+   overhead printed; then the device's busy share and device records an
+   event over two graph replays, for the static, the autoscaled and the
+   resize runner and for telemetry and chains on, with B1's kernel
+   records in ``fused`` seen at most once an event;
 7. the serving path at full width: the four models of
    ``launch.serve.default_registry(4)``, starcoder2-3b, rwkv6-7b,
    zamba2-1.2b and glm4-9b (random bf16 weights from a seed), behind one
@@ -126,6 +138,10 @@ ROOT = Path(__file__).resolve().parent
 #: leaves an eager remainder).
 SIM_EVENTS = 4000
 CHUNK_EVENTS = 3000
+#: The CPU ``gather`` run that the card's head runs are held to takes
+#: their first ``CPU_EVENTS`` events (prefix-consistent, as above), not
+#: the whole head, to keep the script inside its time budget.
+CPU_EVENTS = 1000
 #: The JAX reference's per-event results on that head (blake2s of the
 #: int32 bytes of ``node``/``outcome``; outcome counts hit/miss/drop) and
 #: the whole trace's fingerprint.
@@ -308,13 +324,153 @@ GOLDEN_CHAIN = {
         chain_deadline="700e20ba61e2bbc8ea2069b0a723f95548702d92b0cb54e85f0b6af4302d5dd8"),
 }
 
+#: The vertical-scaling phase, with ``benchmarks/vertical.py``'s own
+#: settings: its cluster (``RZ_NODE_MB``, ``RZ_SLOTS`` slots a pool,
+#: ``size_aware``) and its four lanes (``vertical_lanes``: KiSS without
+#: resize, KiSS with the ``static`` resize policy, unified nodes with
+#: ``Resize("fair_share", RZ_MIN_MB)`` and the hybrid, KiSS split with
+#: it), on the quickstart trace in every run shape (``vertical_runs``)
+#: and the hybrid over the whole of the benchmark's Azure replay trace
+#: (``repro_torch.workloads.benchmark_replay_trace``: 192,047 events) in
+#: chunks of ``RZ_REPLAY_CHUNK``, as the benchmark runs it.
+#: ``GOLDEN_RZ`` holds the JAX reference's results (``rz_digests``:
+#: ``tel_digests`` and the three ``Result.vertical`` arrays), pinned by
+#: ``tests/test_torch_vertical.py``.
+RZ_NODE_MB = (1024.0, 1024.0, 2048.0, 2048.0)
+RZ_SLOTS = 128
+RZ_MIN_MB = 32.0
+RZ_REPLAY_CHUNK = 65536
+GOLDEN_REPLAY_TRACE = "6670a1cc87f72476f5e402d0e3185806730a1895429e1da45eb8a20df38363cd"
+GOLDEN_RZ = {
+    "kiss_static": dict(
+        node="5953eb1acc6f379c262cc13043a69b0d997354239908b42d359499b9e89fe7a4",
+        outcome="0a19a53dd66d2cd8e83a5789ede9e33650a08cbdc8f904fb158fc10fc19367c2",
+        counts=[6992, 2613, 1610],
+        summary="dd0e1fa32ea6f4a6588158bf83d1879583129b2cce45607c09b0165068bbfe90",
+        n_windows=0,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=0,
+        utilization_ratio=0.0,
+        bottleneck_events=0),
+    "kiss_rz_static": dict(
+        node="5953eb1acc6f379c262cc13043a69b0d997354239908b42d359499b9e89fe7a4",
+        outcome="0a19a53dd66d2cd8e83a5789ede9e33650a08cbdc8f904fb158fc10fc19367c2",
+        counts=[6992, 2613, 1610],
+        summary="c514aa3452d78301c86d1c140da104610d180d759984e1cef8c081eaa908beae",
+        n_windows=0,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=0,
+        utilization_ratio=0.7480897445136762,
+        bottleneck_events=0,
+        vert_acc_used_mb="8d69a4efb3f893782607f893a7eae791cc9743ece213cbf7c7ca1546dc20c7e3",
+        vert_acc_alloc_mb="f3f9c110bffab8ae892f13aa5d5038d763898f59d98174fb7f3b754188f386ad",
+        vert_bottlenecks="ae09db7cd54f42b490ef09b6bc541af688e4959bb8c53f359a6f56e38ab454a3"),
+    "vertical_dynamic": dict(
+        node="575b8c0dffa9b420da5ecd75eb304018deeafb5024a7095168766c92f9d6746d",
+        outcome="4aa6c40a7fceab83f53f9b2675ca6d04d511f6ff032c828ee93512adef747804",
+        counts=[6530, 3788, 897],
+        summary="9044f0ce3db88443021f49fcdfdc43c11d63853f24912f78a68cd7f4e12b8239",
+        n_windows=0,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=0,
+        utilization_ratio=0.8234248685058966,
+        bottleneck_events=5184,
+        vert_acc_used_mb="b823a0b4046e3670878f7a711cf798ba5be989fd36274d09eb35916ff7226cf7",
+        vert_acc_alloc_mb="0843dbb2795adb1ad8b35c92c4f59568133f42c3736317070a96bd99495703b2",
+        vert_bottlenecks="8ecb1989f5f18e0c9ac21fe1a0f999773fd7bb8f8e4a90c28ce7419dd7f8500e"),
+    "hybrid": dict(
+        node="5953eb1acc6f379c262cc13043a69b0d997354239908b42d359499b9e89fe7a4",
+        outcome="2ccf9adb669057aa2b986d21c63f0e88bc1078fea56f41c53ceaf0fa68c705a1",
+        counts=[7929, 1676, 1610],
+        summary="becc1912eb8f83c9ad4cdceaff98bd6889325e5414b4ec825f78a98b40a5e8da",
+        n_windows=0,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=0,
+        utilization_ratio=0.8129327076732259,
+        bottleneck_events=4341,
+        vert_acc_used_mb="8d69a4efb3f893782607f893a7eae791cc9743ece213cbf7c7ca1546dc20c7e3",
+        vert_acc_alloc_mb="f1b78c8b6b58bf2a189c251cc2479372c9245b6fc48b0738658b9b36a89c00cc",
+        vert_bottlenecks="df15fd4041d2b0ff89f28fd437d216c9c7bad1cff786579139c3c0b3dea43b92"),
+    "hybrid_failures": dict(
+        node="36d6911a5644ec8c629259aae6f3194b5f36edc85e4d430a87028a38dbaee790",
+        outcome="45bbf2a1b9a3ac9ee0ed86bb413a6dd97bf04e50d10bed84b3f8d27604a2feb0",
+        counts=[6241, 3354, 1620],
+        summary="be5d3cac3ce2c61d3946ed14c924be456e1e07db4b895967fb04ed6d278812e7",
+        n_windows=0,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=60,
+        utilization_ratio=0.8108916088392697,
+        bottleneck_events=4190,
+        vert_acc_used_mb="3e4d1743e6deeb8976cb509085a4692a4a84430bc251e2ebdc9b2582d59f8cf0",
+        vert_acc_alloc_mb="bc70b37ecd10a1c2c813831410f0b5c92414928a0b5c1807dd8f3dceedab3e82",
+        vert_bottlenecks="4e1c98633a7368b213d4ae716fd04860e70b545a484b5dee7c4e6c26d02aef75"),
+    "hybrid_autoscale": dict(
+        node="0ce5515958e9e89d17b9160e5cae6faea726e98d56b4128a7eade07083c281f5",
+        outcome="fc99c62dda8f3665cba3aa7a2484dbcd59c6c804d2efa8fbe74933bb9792eb5b",
+        counts=[8713, 1211, 1291],
+        summary="3c9b7d698fe0690061422f9a423af77fd7a2c5554f98b29a05c5fe138cee5225",
+        n_windows=0,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=0,
+        utilization_ratio=0.8394169812343093,
+        bottleneck_events=5639,
+        vert_acc_used_mb="3dfc19544ecefb9766dcf9b7f61c2955efc6a1abaa4c9af01319a3923841209a",
+        vert_acc_alloc_mb="6926a3d5e996e8a63e3c63841336c170b7f0bce1f20a1d3c344d2c6cd2f854d4",
+        vert_bottlenecks="650ef4f629c7bbd81d3297360f1b4775983ff9b52d954ba1c97995d0c3f02684"),
+    "hybrid_telemetry": dict(
+        node="5953eb1acc6f379c262cc13043a69b0d997354239908b42d359499b9e89fe7a4",
+        outcome="2ccf9adb669057aa2b986d21c63f0e88bc1078fea56f41c53ceaf0fa68c705a1",
+        counts=[7929, 1676, 1610],
+        summary="57825b6e25f29a9b1529fb4a53aa1257e319768d8be4d86c713b3a682eaf51f4",
+        n_windows=6,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=0,
+        tel_counts="d20fb254941422b3344da71a2c997afefc1eb4c52d94ebdb516417d70cf93bf3",
+        tel_free_mb="4b39c32c7617f2cc555f55d4dc57ef86c2d124abd06a47ad9e1f8a1c38fc1fdd",
+        tel_occupancy="b03cc17b183dcb45a20f598464f0683e8b6b1aa24d5e402d7f982777433e0d68",
+        tel_invalidated="f401874fee3bc5e1fcbabfba108e5b9a9950d45810190098aae7734e91a1240f",
+        tel_nodes_up="6b17386508f31d7f63c3fda5327ba4093b2181203fdde04bdabd51610481167e",
+        tel_nodes_active="6b17386508f31d7f63c3fda5327ba4093b2181203fdde04bdabd51610481167e",
+        tel_chain_miss="f401874fee3bc5e1fcbabfba108e5b9a9950d45810190098aae7734e91a1240f",
+        tel_t_start="702090dc1e3aa1330cdb747efb4adedcd4cfe3484ff5d9ea0de6cb18c48df0ba",
+        tel_t_end="3dfc2671a0d294f9af392277fa032c66af556392c5da94fac941905e9251a6ca",
+        tel_event_start="7d3e6906e99ac64d33eb37b0b9e8383bdeeeb0b0397484ba1f7c0627f3c28561",
+        utilization_ratio=0.8129327076732259,
+        bottleneck_events=4341,
+        vert_acc_used_mb="8d69a4efb3f893782607f893a7eae791cc9743ece213cbf7c7ca1546dc20c7e3",
+        vert_acc_alloc_mb="f1b78c8b6b58bf2a189c251cc2479372c9245b6fc48b0738658b9b36a89c00cc",
+        vert_bottlenecks="df15fd4041d2b0ff89f28fd437d216c9c7bad1cff786579139c3c0b3dea43b92"),
+    "hybrid_replay": dict(
+        node="02ecc1e4a45cf7ed648fce137c65e8daa23ef371a97673132d1d670f1ad6fc72",
+        outcome="4a4750c9d771beb98d415679e7a3cd503e5214fd4c27f9d6a6bbc84dc48a206f",
+        counts=[108297, 27527, 56223],
+        summary="8e27b045bb5943b921bc88301c0d3b1c05b930f143a44ec6b7436fee73ac2bd3",
+        n_windows=0,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=0,
+        utilization_ratio=0.8394002345842548,
+        bottleneck_events=68845,
+        vert_acc_used_mb="dfda2f3c85440e97a8600e3fbb5b7982d2cab59f96700eeb31e31b5e79b161b1",
+        vert_acc_alloc_mb="e63792341a861a7cb9475b5553440dd132d69a999f0f135eef2eda3d0a3762d5",
+        vert_bottlenecks="b12776b0bb151981578e6fd06a0df9cf052896d7c1568e78337d32eb4252221f"),
+}
+
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core op/s,
 #: dense bf16 tensor-core op/s.
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 BF16_OPS_S = 989e12
 
-KERNEL_SHAPES = ((2, 1024), (32, 256), (3, 1000))   # path, path, ragged
+#: path (kiss4096), path (het16), ragged, the vertical phase's cluster
+KERNEL_SHAPES = ((2, 1024), (32, 256), (3, 1000), (8, 128))
 #: The one ``__global__`` kernel each B1 launch runs.
 POOL_KERNELS = ["evict_place_kernel"]
 
@@ -1013,7 +1169,7 @@ def path_phase(dev, trace) -> dict:
     chunked = (("kiss4096", "gather"), ("kiss4096", "vmap"),
                ("kiss4096", "fused"), ("het16_size_aware", "fused"))
     scns = scenarios()
-    summaries, runs = {}, {}
+    card, runs = {}, {}
     print(f"path: block runner, {BLOCK_EVENTS} events a graph", flush=True)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1026,7 +1182,8 @@ def path_phase(dev, trace) -> dict:
                 res, runs[f"{name}/{mode}"] = timed_run(
                     f"{name} mode={mode} on {dev}", [n], mode,
                     lambda: simulate(scn, head, mode=mode, device=dev))
-                summaries[name, mode] = check_result(name, mode, res, n)
+                check_result(name, mode, res, n)
+                card[name, mode] = res
         for name, mode in chunked:
             res, runs[f"{name}/{mode}/chunked"] = timed_run(
                 f"{name} mode={mode} chunk_events={CHUNK_EVENTS} on {dev}",
@@ -1046,16 +1203,20 @@ def path_phase(dev, trace) -> dict:
           f"{counts['b1_launches']} times, once a fused event", flush=True)
     for name, scn in scns.items():
         t0 = time.perf_counter()
-        res = simulate(scn, head, mode="gather", device="cpu")
+        res = simulate(scn, head.head(CPU_EVENTS), mode="gather",
+                       device="cpu")
         dt = time.perf_counter() - t0
-        summary = check_result(name, "cpu", res, n)
         for mode in modes:
-            check(summaries[name, mode] == summary,
-                  f"{name}/{mode}: summary differs from the CPU run")
-        runs[f"{name}/gather/cpu"] = dict(events=n, wall_s=dt,
-                                          events_per_s=n / dt)
-        print(f"path {name} mode=gather on cpu: {n / dt:.1f} events/s; "
-              f"equal to the card's runs", flush=True)
+            got = card[name, mode]
+            check(np.array_equal(res.node, got.node[:CPU_EVENTS])
+                  and np.array_equal(res.outcome, got.outcome[:CPU_EVENTS]),
+                  f"{name}/{mode}: the card's first {CPU_EVENTS} events "
+                  "differ from the CPU run")
+        runs[f"{name}/gather/cpu"] = dict(events=CPU_EVENTS, wall_s=dt,
+                                          events_per_s=CPU_EVENTS / dt)
+        print(f"path {name} mode=gather on cpu: {CPU_EVENTS / dt:.1f} "
+              f"events/s; equal to the card's runs over its first "
+              f"{CPU_EVENTS} events", flush=True)
     return {"launches": counts["b1_launches"], "counts": counts,
             "runs": runs}
 
@@ -1370,12 +1531,157 @@ def telemetry_phase(dev, trace) -> dict:
             "runs": runs}
 
 
+def vertical_lanes() -> dict:
+    """``benchmarks/vertical.py``'s four lanes, by their names there."""
+    from repro_torch.sim import Resize, Scenario
+    rz = Resize("fair_share", min_mb=RZ_MIN_MB)
+
+    def lane(name, **kw):
+        return Scenario.cluster(RZ_NODE_MB, routing="size_aware",
+                                max_slots=RZ_SLOTS, name=name, **kw)
+    return {"kiss_static": lane("kiss_static"),
+            "kiss_rz_static": lane("kiss_rz_static", resize="static"),
+            "vertical_dynamic": lane("vertical_dynamic", unified=True,
+                                     resize=rz),
+            "hybrid": lane("hybrid", resize=rz)}
+
+
+def vertical_scenarios(trace, replay) -> dict:
+    """The vertical phase's runs by their ``GOLDEN_RZ`` names, each a
+    ``(scenario, trace)``: the four lanes on the quickstart ``trace``, the
+    hybrid there with the failure phase's outages over the whole trace,
+    autoscaled every ``ASC_EPOCH`` events and with windows of
+    ``TEL_WINDOW`` events, and the hybrid on the ``replay`` trace."""
+    from repro_torch.sim import Autoscale, Failures
+    lanes = vertical_lanes()
+    hyb, t_end = lanes["hybrid"], float(trace.t[-1])
+    fails = Failures(tuple((lo * t_end, hi * t_end, node)
+                           for lo, hi, node in FAIL_WINDOWS))
+    out = {name: (scn, trace) for name, scn in lanes.items()}
+    out.update(
+        hybrid_failures=(dataclasses.replace(
+            hyb, name="hybrid_failures", failures=fails), trace),
+        hybrid_autoscale=(dataclasses.replace(
+            hyb, name="hybrid_autoscale",
+            autoscale=Autoscale(epoch_events=ASC_EPOCH)), trace),
+        hybrid_telemetry=(dataclasses.replace(
+            hyb, name="hybrid_telemetry", telemetry=TEL_WINDOW), trace),
+        hybrid_replay=(hyb, replay))
+    return out
+
+
+#: The vertical phase's runs, in order: ``(GOLDEN_RZ name, mode,
+#: chunk_events)``.
+VERTICAL_RUNS = (
+    ("hybrid", "gather", None), ("hybrid", "vmap", None),
+    ("hybrid", "fused", None), ("hybrid", "fused", CHUNK_EVENTS),
+    ("vertical_dynamic", "fused", None), ("kiss_rz_static", "fused", None),
+    ("kiss_static", "fused", None), ("hybrid_failures", "fused", None),
+    ("hybrid_autoscale", "fused", None), ("hybrid_telemetry", "fused", None),
+    ("hybrid_replay", "fused", RZ_REPLAY_CHUNK))
+#: The ``Result.vertical`` arrays ``rz_digests`` holds.
+VERTICAL_ARRAYS = ("acc_used_mb", "acc_alloc_mb", "bottlenecks")
+#: The summary keys only vertical scaling may move.
+VERTICAL_KEYS = ("utilization_ratio", "bottleneck_events")
+
+
+def rz_digests(res) -> dict:
+    """What ``GOLDEN_RZ`` holds of a run (of either package's
+    ``Result``): ``tel_digests`` (node, outcome, the whole summary and any
+    window arrays), the vertical summary keys in the clear, and digests
+    of the three ``Result.vertical`` arrays in their own dtypes."""
+    out = tel_digests(res)
+    s = res.summary()
+    out.update({k: s[k] for k in VERTICAL_KEYS})
+    for k in VERTICAL_ARRAYS if res.vertical is not None else ():
+        a = np.asarray(res.vertical[k])
+        out["vert_" + k] = digest(a, a.dtype)
+    return out
+
+
+def vertical_phase(dev, trace) -> dict:
+    """Vertical scaling on the card, under ``set_sync_debug_mode("error")``,
+    every count zeroed before and read after: ``VERTICAL_RUNS`` over
+    ``vertical_scenarios`` (the hybrid in every mode, monolithic and in
+    chunks of ``CHUNK_EVENTS``; the other lanes, the outages, the
+    autoscaler, telemetry and the whole replay trace in ``fused``).  Every
+    run goes through the block runner (its counts and B1's are checked)
+    and is held to ``GOLDEN_RZ``; the ``static`` resize lane's outcome
+    keys must equal no resize's (``benchmarks/vertical.py``'s
+    ``vertical_static_noop``), and every ``fair_share`` run must have
+    served bottleneck events (the shrink ran).  Prints each run's events/s
+    and resize's overhead: the hybrid against ``kiss_static`` in
+    ``fused``, walls less capture."""
+    from repro_torch.sim import simulate
+    from repro_torch.sim.api import trace_fingerprint
+    from repro_torch.workloads import benchmark_replay_trace
+    replay = benchmark_replay_trace()
+    check(trace_fingerprint(replay) == GOLDEN_REPLAY_TRACE,
+          "the stored replay trace differs from the one the reference ran")
+    scns = vertical_scenarios(trace, replay)
+    runs, summaries, fused = {}, {}, 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        check(sync_guard_refuses(dev),
+              "sync debug mode did not refuse a host sync")
+        zero_counts()                    # the vertical path starts here
+        total = RunCounts()
+        for name, mode, chunk in VERTICAL_RUNS:
+            scn, tr = scns[name]
+            n = len(tr)
+            spans = (spans_of(n, ASC_EPOCH) if scn.autoscale is not None
+                     else spans_of(n, chunk or n))
+            run = f"{name}/{mode}" + ("/chunked" if chunk else "")
+            what = f"vertical {name} mode={mode} chunk_events={chunk}"
+            res, runs[run] = timed_run(
+                what, spans, mode,
+                lambda: simulate(scn, tr, mode=mode, device=dev,
+                                 chunk_events=chunk))
+            got = rz_digests(res)
+            check(got == GOLDEN_RZ[name],
+                  f"{what}: {got} != the JAX reference {GOLDEN_RZ[name]}")
+            summaries[run] = s = res.summary()
+            check(all(np.isfinite(v) for v in s.values()),
+                  f"{what}: non-finite summary value")
+            if scn.resize is not None and scn.resize.policy == "fair_share":
+                check(s["bottleneck_events"] > 0,
+                      f"{what}: no bottleneck event, so no shrink ran")
+            fused += n if mode == "fused" else 0
+        counts = total.delta()                # ... and ends here
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(counts["b1_launches"] == fused,
+          f"vertical runs launched B1 {counts['b1_launches']} times, want "
+          f"{fused}")
+    plain, static = (summaries[f"{k}/fused"]
+                     for k in ("kiss_static", "kiss_rz_static"))
+    drift = sorted(k for k in plain if k not in VERTICAL_KEYS
+                   and static[k] != plain[k])
+    check(not drift, f"the static resize policy moved {drift}")
+    r_on, r_off = runs["hybrid/fused"], runs["kiss_static/fused"]
+    over = ((r_on["wall_s"] - r_on["capture_s"])
+            / (r_off["wall_s"] - r_off["capture_s"]) - 1.0)
+    r_on["overhead"] = over
+    print(f"vertical: every run matches the JAX reference bitwise; B1 "
+          f"launched {counts['b1_launches']} times; {counts['captures']} "
+          f"captures; static resize == no resize on every outcome key; "
+          f"hybrid {summaries['hybrid/fused']['bottleneck_events']} "
+          f"bottleneck events, utilization "
+          f"{summaries['hybrid/fused']['utilization_ratio']:.4f}; resize "
+          f"overhead in fused {100 * over:.1f}% (hybrid against "
+          "kiss_static, walls less capture)", flush=True)
+    return {"launches": counts["b1_launches"], "counts": counts,
+            "runs": runs, "overhead": over}
+
+
 def busy_phase(dev, trace) -> dict:
     """Device busy share and device records an event over two graph
     replays (the first ``2 * BLOCK_EVENTS`` events) of the kiss scenario,
-    for the static runner and the autoscaled one (an epoch of
+    for the static runner, the autoscaled one (an epoch of
     ``ASC_EPOCH`` events, so the window holds no re-split: the per-event
-    cost of the live mask and the pressure), and of the ``slack_aware``
+    cost of the live mask and the pressure) and the resize one
+    (``Resize("fair_share", RZ_MIN_MB)``: the shrink pass and the
+    accumulators an event), and of the ``slack_aware``
     chain scenario on the chain benchmark's trace (telemetry and chains
     on, the runner with failures), each in ``gather`` and ``fused``:
     summed device time of every kernel and copy the profiler
@@ -1389,12 +1695,14 @@ def busy_phase(dev, trace) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.cluster.graphs import BLOCK_EVENTS
-    from repro_torch.sim import Autoscale, simulate
+    from repro_torch.sim import Autoscale, Resize, simulate
     from repro_torch.workloads import benchmark_chained_trace
     n_events = 2 * BLOCK_EVENTS
     head, kiss = trace.head(n_events), scenarios()["kiss4096"]
     flavours = {"static": (kiss, head), "autoscaled": (dataclasses.replace(
         kiss, autoscale=Autoscale(epoch_events=ASC_EPOCH)), head),
+        "resize": (dataclasses.replace(
+            kiss, resize=Resize("fair_share", RZ_MIN_MB)), head),
         "telemetry+chains": (chain_scenarios()["slack_aware"],
                              benchmark_chained_trace().head(n_events))}
     out = {}
@@ -1915,6 +2223,7 @@ def main() -> int:
     failures = failure_phase(dev, trace)
     autoscale = autoscale_phase(dev, trace)
     telemetry = telemetry_phase(dev, trace)
+    vertical = vertical_phase(dev, trace)
     busy = busy_phase(dev, trace)
     serving = serving_phase(dev)
     eviction = eviction_phase(dev, serving["sizes"])
@@ -1922,7 +2231,7 @@ def main() -> int:
 
     main_row = kernels["rows"][0]            # [2, 1024]: Scenario.kiss
     b1_path = (path["launches"] + autoscale["launches"]
-               + telemetry["launches"])
+               + telemetry["launches"] + vertical["launches"])
     entries = [dict(name="pool_step.evict_place", route="cuda",
                     source="src/repro_torch/kernels/csrc/pool_step.cu",
                     replaces="src/repro/kernels/pool_step.py:43",
@@ -1931,6 +2240,7 @@ def main() -> int:
                         simulator=path["launches"],
                         autoscale=autoscale["launches"],
                         telemetry_chains=telemetry["launches"],
+                        vertical=vertical["launches"],
                         failures=failures["launches"]),
                     cuda_kernels=POOL_KERNELS,
                     cuda_kernel_launches=b1_path,
@@ -1976,6 +2286,8 @@ def main() -> int:
                       "counts": autoscale["counts"]},
         "telemetry_chains": {"runs": telemetry["runs"],
                              "counts": telemetry["counts"]},
+        "vertical": {"runs": vertical["runs"], "counts": vertical["counts"],
+                     "overhead": vertical["overhead"]},
         "device_busy_share": busy,
         "serving": {k: serving[k] for k in ("stats", "wall_s", "models",
                                             "peak_gb", "busy")},

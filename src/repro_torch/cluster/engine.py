@@ -73,7 +73,15 @@ window sums are folded on the host from the per-event outputs
 chain rows are global, so a chunked run gives the monolithic arrays for
 any chunk size.
 
-Not ported yet: vertical scaling (ROADMAP A11), sweeps (A12).
+Vertical scaling (``ClusterConfig.resize_policy``) rides every run shape
+too: the events carry each one's observed usage ``used`` (computed on
+the host by ``observed_usage`` with numpy, uploaded with the other
+columns), every pool carries the resize fields, a recovery or a
+retirement zeroes the limits and usage of the node's residents and keeps
+the run totals, and the final state's totals come back as the run's
+``vertical`` arrays (:func:`_vert_np`).
+
+Not ported yet: sweeps (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -89,7 +97,7 @@ from ..core.continuum import (Autoscale, ChainPlan, ClusterConfig, Failures,
 from ..core.pool import (Event, PoolState, _evict_place_lax, _first_true,
                          _select, get_step_backend, init_pool, pool_resize,
                          pool_step_batch, stack_pools)
-from ..core.registry import ROUTING, RouteCtx
+from ..core.registry import ROUTING, RouteCtx, observed_usage
 from ..core.types import DROP, HIT, MISS, PoolConfig, Trace
 from .metrics import ClusterResult, build_result
 
@@ -120,7 +128,8 @@ def check_chunk_events(chunk_events) -> int | None:
 
 class ClusterEvent(NamedTuple):
     """One invocation plus its precomputed node hashes (0-d tensors), or
-    a whole trace of them (``[T]`` arrays)."""
+    a whole trace of them (``[T]`` arrays).  ``used`` is the observed
+    usage a cold start records (resize only; ``None`` otherwise)."""
 
     t: torch.Tensor
     func_id: torch.Tensor
@@ -130,33 +139,48 @@ class ClusterEvent(NamedTuple):
     cold: torch.Tensor
     h1: torch.Tensor     # sticky hash: func_id % n_nodes
     h2: torch.Tensor     # second (Knuth multiplicative) hash
+    used: torch.Tensor | None = None   # f32 observed usage (resize only)
 
 
-def _host_events(trace: Trace, n_nodes: int) -> ClusterEvent:
+def _host_events(trace: Trace, n_nodes: int, *,
+                 resize: bool = False) -> ClusterEvent:
     """The trace as ``[T]`` numpy columns with the reference's dtypes
-    (f32 times and sizes, i32 ids, classes and hashes); a chunked run
-    uploads one slice of them at a time."""
+    (f32 times and sizes, i32 ids, classes and hashes, and with
+    ``resize`` the f32 observed usage); a chunked run uploads one slice
+    of them at a time."""
     h1, h2 = route_hashes(trace.func_id, n_nodes)
+    fid = np.asarray(trace.func_id, np.int32)
+    size = np.asarray(trace.size_mb, np.float32)
     return ClusterEvent(
         t=np.asarray(trace.t, np.float32),
-        func_id=np.asarray(trace.func_id, np.int32),
-        size=np.asarray(trace.size_mb, np.float32),
+        func_id=fid,
+        size=size,
         cls=np.asarray(trace.cls, np.int32),
         warm=np.asarray(trace.warm_dur, np.float32),
         cold=np.asarray(trace.cold_dur, np.float32),
-        h1=h1, h2=h2)
+        h1=h1, h2=h2,
+        used=observed_usage(np, fid, size) if resize else None)
 
 
 def _upload(arrays, s: int, e: int, device) -> tuple:
     """Events ``[s, e)`` of host arrays as tensors on ``device`` (the
     reference's ``_chunk_slice``/``_chunk_mask``, without their pad: the
-    port runs a short chunk as it is)."""
-    return tuple(torch.tensor(a[s:e], device=device) for a in arrays)
+    port runs a short chunk as it is); a ``None`` column stays ``None``."""
+    return tuple(None if a is None else torch.tensor(a[s:e], device=device)
+                 for a in arrays)
 
 
-def cluster_events(trace: Trace, n_nodes: int, device) -> ClusterEvent:
+def _each(events: ClusterEvent, f) -> ClusterEvent:
+    """``f`` applied to every column of ``events`` (an index or a
+    slice), a ``None`` column passed through."""
+    return ClusterEvent(*(None if a is None else f(a) for a in events))
+
+
+def cluster_events(trace: Trace, n_nodes: int, device, *,
+                   resize: bool = False) -> ClusterEvent:
     """The whole trace as ``[T]`` tensors on ``device``."""
-    return ClusterEvent(*_upload(_host_events(trace, n_nodes), 0,
+    return ClusterEvent(*_upload(_host_events(trace, n_nodes,
+                                              resize=resize), 0,
                                  len(trace), device))
 
 
@@ -164,7 +188,9 @@ def init_cluster(cfg: ClusterConfig, device) -> PoolState:
     """Stack all 2N pools of the cluster on a leading axis."""
     caps = cfg.pool_caps()
     return stack_pools([
-        init_pool(PoolConfig(caps[n, k], cfg.policy, cfg.max_slots), device)
+        init_pool(PoolConfig(caps[n, k], cfg.policy, cfg.max_slots,
+                             resize_policy=cfg.resize_policy,
+                             resize_min_mb=cfg.resize_min_mb), device)
         for n in range(cfg.n_nodes) for k in range(2)])
 
 
@@ -186,19 +212,25 @@ def _route(routing: torch.Tensor, ev: ClusterEvent, free_t, cap_t, cloud,
 
 
 def _invalidate_nodes(pools: PoolState, mask_n: torch.Tensor, n_nodes: int):
-    """Kill every resident of the masked nodes (failure recovery): their
-    pools restart empty at their capacity with a reset GreedyDual clock.
-    Returns ``(count i32[N] residents killed, cleared pools)``."""
+    """Kill every resident of the masked nodes (failure recovery, node
+    retirement): their pools restart empty at their capacity with a
+    reset GreedyDual clock; with resize on, the residents' limits and
+    usage die with them and the run totals stay.  Returns ``(count
+    i32[N] residents killed, cleared pools)``."""
     cnt2 = pools.valid.sum(-1, dtype=torch.int32)                # [2N]
     cnt = torch.where(mask_n, cnt2.view(n_nodes, 2).sum(1, dtype=torch.int32),
                       0)
     m2 = mask_n.unsqueeze(1).expand(n_nodes, 2).reshape(-1)      # [2N]
     col = m2.unsqueeze(1)
+    extra = {}
+    if pools.alloc is not None:
+        extra = dict(alloc=torch.where(col, 0.0, pools.alloc),
+                     used=torch.where(col, 0.0, pools.used))
     return cnt, pools._replace(
         valid=torch.where(col, False, pools.valid),
         func_id=torch.where(col, -1, pools.func_id),
         free=torch.where(m2, pools.capacity, pools.free),
-        clock=torch.where(m2, 0.0, pools.clock))
+        clock=torch.where(m2, 0.0, pools.clock), **extra)
 
 
 def _make_step(routing: torch.Tensor, unified: torch.Tensor,
@@ -237,7 +269,8 @@ def _make_step(routing: torch.Tensor, unified: torch.Tensor,
                       no_stage if cstage is None else cstage)  # [1]
         ok = None if up_n is None else up_n.index_select(0, node)  # [1]
         p = node * 2 + tgt.index_select(0, node)              # [1]
-        core_ev = Event(ev.t, ev.func_id, ev.size, ev.cls, ev.warm, ev.cold)
+        core_ev = Event(ev.t, ev.func_id, ev.size, ev.cls, ev.warm, ev.cold,
+                        ev.used)
         if mode == "gather":
             one = PoolState(*(None if a is None else a.index_select(0, p)
                               for a in pools))
@@ -440,7 +473,7 @@ def _run_events(step, pools: PoolState, inval, events: ClusterEvent, up,
     returned state is new tensors."""
     out = out or EventOut()
     for i in range(count):
-        ev = ClusterEvent(*(a[i] for a in events))
+        ev = _each(events, lambda a: a[i])
         live = None if up is None else up[i]
         if recover is not None:
             cnt, pools = _invalidate_nodes(pools, recover[i], n_nodes)
@@ -511,14 +544,16 @@ def _chain_np(plan: ChainPlan, chain: ChainAcc, miss_ev: np.ndarray) -> dict:
     latency and drops from the device state, ``done`` (a final stage was
     stepped) from the plan and ``missed`` from the per-event miss flags,
     both the OR over the chain's events the reference accumulates.
-    Reads the state back: call it inside a sync point."""
+    Copies the state (a runner's is reused by its next run, and on the
+    CPU ``.cpu().numpy()`` would share its storage); call it inside a
+    sync point."""
     c = plan.n_chains
     done = np.zeros(c, bool)
     done[plan.cid[plan.last]] = True
     missed = np.zeros(c, bool)
     missed[plan.cid[np.asarray(miss_ev) != 0]] = True
-    return {"latency": chain.lat[:c].cpu().numpy(),
-            "dropped": chain.dropped[:c].cpu().numpy(),
+    return {"latency": chain.lat[:c].cpu().numpy().copy(),
+            "dropped": chain.dropped[:c].cpu().numpy().copy(),
             "done": done, "missed": missed}
 
 
@@ -576,11 +611,24 @@ def _outputs(t_len: int, failing: bool, tel_on: bool, ch_on: bool,
             i32() if ch_on else None)
 
 
+def _vert_np(pools: PoolState) -> dict:
+    """The vertical-scaling run totals of a final pool state on the host,
+    per pool in the stacked node-major ``[2N]`` layout, under the
+    reference's ``_vert_np`` keys (copies: a runner's state is reused by
+    its next run).  Reads the device back: call it inside a sync
+    point."""
+    return {"acc_used_mb": pools.acc_used.cpu().numpy().copy(),
+            "acc_alloc_mb": pools.acc_alloc.cpu().numpy().copy(),
+            "bottlenecks": pools.bneck.cpu().numpy().astype(np.int64)}
+
+
 def _extras(trace: Trace, outcome, data: _RunData, window, plan, sink,
-            chain, inval_ev, miss_ev, active=None, retired=()) -> dict:
-    """The run's telemetry and chain arrays (``"telemetry"``,
-    ``"chains"``) from its per-event outputs and device state.  Reads
-    the device back: call it inside a sync point."""
+            chain, inval_ev, miss_ev, pools: PoolState, active=None,
+            retired=()) -> dict:
+    """The run's telemetry, chain and vertical-scaling arrays
+    (``"telemetry"``, ``"chains"``, ``"vertical"``) from its per-event
+    outputs and device state, the final ``pools`` among it.  Reads the
+    device back: call it inside a sync point."""
     out = {}
     if window is not None:
         out["telemetry"] = _tel_np(
@@ -590,6 +638,8 @@ def _extras(trace: Trace, outcome, data: _RunData, window, plan, sink,
             None if data.masks is None else data.masks[0], active, retired)
     if plan is not None:
         out["chains"] = _chain_np(plan, chain, miss_ev.cpu().numpy())
+    if pools.alloc is not None:
+        out["vertical"] = _vert_np(pools)
     return out
 
 
@@ -611,7 +661,8 @@ def _replay(cfg: ClusterConfig, trace: Trace, device, mode: str,
     n, t_len = cfg.n_nodes, len(trace)
     failing = failures is not None
     tel_on, ch_on = window is not None, plan is not None
-    ev_np = _host_events(trace, n)
+    rz_on = cfg.resize_policy is not None
+    ev_np = _host_events(trace, n, resize=rz_on)
     with sync_point(device):
         data = _run_data(trace, n, failures, plan, ccold, device)
         sink = TelSink(window, t_len, n, device) if tel_on else None
@@ -624,7 +675,7 @@ def _replay(cfg: ClusterConfig, trace: Trace, device, mode: str,
         node, outcome, inval_ev, miss_ev = _outputs(t_len, failing, tel_on,
                                                     ch_on, device)
         chain = _chain_acc(data.deadline, cloud) if ch_on else None
-        _, inval = _run_events(
+        pools, inval = _run_events(
             step, pools, inval, ClusterEvent(*_upload(ev_np, 0, t_len,
                                                        device)),
             up, rec, node, outcome, n, t_len,
@@ -637,7 +688,8 @@ def _replay(cfg: ClusterConfig, trace: Trace, device, mode: str,
         with sync_point(device):
             runner = graphs.block_runner(
                 device, n, cfg.max_slots, mode, failing, block_events,
-                tel=tel_on, chains=plan.n_chains if ch_on else 0)
+                tel=tel_on, chains=plan.n_chains if ch_on else 0,
+                resize=rz_on)
             runner.load(*_run_inputs(cfg, device), deadline=data.deadline,
                         sink=sink)
             host = _outputs(t_len, failing, tel_on, ch_on, "cpu")
@@ -656,11 +708,11 @@ def _replay(cfg: ClusterConfig, trace: Trace, device, mode: str,
                     if h is not None:
                         h[s:e].copy_(d)
         node, outcome, inval_ev, miss_ev = host
-        inval, chain = runner.inval, runner.chain
+        inval, chain, pools = runner.inval, runner.chain, runner.pools
     node_np, outcome_np = node.numpy(), outcome.numpy()
     with sync_point(device):
         extras = _extras(trace, outcome_np, data, window, plan, sink, chain,
-                         inval_ev, miss_ev)
+                         inval_ev, miss_ev, pools)
         if failing:
             extras.update(invalidated=inval.cpu().numpy().astype(np.int64),
                           node_up=data.masks[0])
@@ -830,13 +882,14 @@ def _replay_autoscale(cfg: ClusterConfig, asc: Autoscale, trace: Trace,
     n, t_len = cfg.n_nodes, len(trace)
     failing = failures is not None
     tel_on, ch_on = window is not None, plan is not None
+    rz_on = cfg.resize_policy is not None
     spans = _epochs(t_len, asc.epoch_events)
     with sync_point(device):
         data = _run_data(trace, n, failures, plan, ccold, device)
         sink = TelSink(window, t_len, n, device) if tel_on else None
         pools, routing, unified, cloud = _run_inputs(cfg, device)
         inputs = _autoscale_inputs(cfg, asc, device)
-        ev = ClusterEvent(*_upload(_host_events(trace, n), 0, t_len, device))
+        ev = cluster_events(trace, n, device, resize=rz_on)
         up, rec = (_upload(data.masks, 0, t_len, device) if failing
                    else (None, None))
         cx = ChainXs(*_upload(data.cx, 0, t_len, device)) if ch_on else None
@@ -858,7 +911,7 @@ def _replay_autoscale(cfg: ClusterConfig, asc: Autoscale, trace: Trace,
             carry = graphs.block_runner(
                 device, n, cfg.max_slots, mode, failing, block_events,
                 autoscaled=True, tel=tel_on,
-                chains=plan.n_chains if ch_on else 0)
+                chains=plan.n_chains if ch_on else 0, resize=rz_on)
             carry.load(pools, routing, unified, cloud, inputs.active0,
                        data.deadline, sink)
     frac = inputs.frac0
@@ -868,7 +921,7 @@ def _replay_autoscale(cfg: ClusterConfig, asc: Autoscale, trace: Trace,
     for k, (s, e) in enumerate(spans):
         carry.press.zero_()
         carry.dropw.zero_()
-        carry.run_chunk(ClusterEvent(*(a[s:e] for a in ev)), cut(up, s, e),
+        carry.run_chunk(_each(ev, lambda a: a[s:e]), cut(up, s, e),
                         cut(rec, s, e), node[s:e], outcome[s:e], s,
                         None if cx is None else ChainXs(*(a[s:e] for a in cx)),
                         cut(inval_ev, s, e), cut(miss_ev, s, e))
@@ -890,7 +943,8 @@ def _replay_autoscale(cfg: ClusterConfig, asc: Autoscale, trace: Trace,
                                    actives_np[:-1]]).sum(1)
             active_ev = np.repeat(rows, asc.epoch_events)[:t_len]
         extras = _extras(trace, outcome_np, data, window, plan, sink,
-                         carry.chain, inval_ev, miss_ev, active_ev,
+                         carry.chain, inval_ev, miss_ev, carry.pools,
+                         active_ev,
                          [(e, int(c)) for (_, e), c in
                           zip(spans, retired.cpu().numpy()) if c])
         extras.update(

@@ -48,6 +48,13 @@ reads each event's chain row, stage, final-stage flag and cloud cold
 flip from ``[K]`` input buffers and writes its miss flag into a ``[K]``
 output buffer.
 
+With vertical scaling on (``resize=True``) the carry's pool state holds
+the seven resize fields (limits, usage, the policy's code and floor,
+the run totals): ``load`` copies the run's policy code and floor into
+it as data, and ``commit`` writes the resized limits back after a
+re-split; each event's observed usage comes in through a ``[K]`` input
+buffer.
+
 Runners are cached like ``jax.jit``'s programs, keyed on every Python
 value the captured step closes over (:func:`block_runner`).  Warm-up and
 capture happen when an entry is made, on its own tensors, before any
@@ -63,9 +70,10 @@ import torch
 
 from ..core.continuum import ClusterConfig
 from ..core.pool import get_step_backend
-from ..core.registry import REPLACEMENT, ROUTING
+from ..core.registry import REPLACEMENT, RESIZE, ROUTING
 from .engine import (ChainAcc, ChainXs, ClusterEvent, EventOut, Pressure,
-                     _make_step, _run_events, _snapshot, init_cluster)
+                     _each, _make_step, _run_events, _snapshot,
+                     init_cluster)
 
 #: Events one graph replay steps.  Replay time per event barely depends
 #: on it (the device runs the same kernels; a block's copies and launch
@@ -114,7 +122,7 @@ class BlockRunner:
     def __init__(self, device: torch.device, n_nodes: int, max_slots: int,
                  mode: str, failing: bool, block: int,
                  autoscaled: bool = False, tel: bool = False,
-                 chain_cap: int = 0):
+                 chain_cap: int = 0, resize: bool = False):
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
         n, k, dev = n_nodes, block, device
@@ -126,7 +134,7 @@ class BlockRunner:
         self.cloud = torch.zeros(2, dtype=torch.float32, device=dev)
         self.pools = init_cluster(ClusterConfig(
             node_mb=(1.0,) * n, small_frac=(0.5,) * n, unified=(False,) * n,
-            max_slots=max_slots), dev)
+            max_slots=max_slots, resize_policy=0 if resize else None), dev)
         self.inval = torch.zeros(n, dtype=torch.int32, device=dev)
         self.active = torch.ones(n, dtype=torch.bool, device=dev)
         self.press = torch.zeros((n, 2), dtype=torch.float32, device=dev)
@@ -134,7 +142,8 @@ class BlockRunner:
         f32, i32 = torch.float32, torch.int32
         self.events = ClusterEvent(*(
             torch.zeros(k, dtype=dt, device=dev)
-            for dt in (f32, i32, f32, i32, f32, f32, i32, i32)))
+            for dt in (f32, i32, f32, i32, f32, f32, i32, i32)),
+            used=torch.zeros(k, dtype=f32, device=dev) if resize else None)
         self.up = torch.ones((k, n), dtype=torch.bool, device=dev)
         self.recover = torch.zeros((k, n), dtype=torch.bool, device=dev)
         self.node = torch.zeros(k, dtype=i32, device=dev)
@@ -285,7 +294,8 @@ class BlockRunner:
         full = c - c % k
         for s in range(0, full, k):
             for dst, src in zip(self.events, events):
-                dst.copy_(src[s:s + k])
+                if dst is not None:
+                    dst.copy_(src[s:s + k])
             if self.failing:
                 self.up.copy_(up[s:s + k])
                 self.recover.copy_(recover[s:s + k])
@@ -304,7 +314,7 @@ class BlockRunner:
             def rest(a):
                 return None if a is None else a[full:]
             self._advance(
-                ClusterEvent(*(a[full:] for a in events)), rest(up),
+                _each(events, lambda a: a[full:]), rest(up),
                 rest(recover), node[full:], outcome[full:], c - full,
                 None if cx is None else ChainXs(*(a[full:] for a in cx)),
                 EventOut(rest(inval), rest(miss),
@@ -315,15 +325,16 @@ class BlockRunner:
 
 @functools.lru_cache(maxsize=CACHE_SIZE)
 def _cached(device, n_nodes, max_slots, mode, failing, block, autoscaled,
-            tel, chain_cap, routing_specs, replacement_specs) -> BlockRunner:
+            tel, chain_cap, resize, routing_specs, replacement_specs,
+            resize_specs) -> BlockRunner:
     return BlockRunner(device, n_nodes, max_slots, mode, failing, block,
-                       autoscaled, tel, chain_cap)
+                       autoscaled, tel, chain_cap, resize)
 
 
 def block_runner(device, n_nodes: int, max_slots: int, mode: str,
                  failing: bool, block: int | None = None,
                  autoscaled: bool = False, tel: bool = False,
-                 chains: int = 0) -> BlockRunner:
+                 chains: int = 0, resize: bool = False) -> BlockRunner:
     """The cached runner for this cluster shape and step mode.
 
     The key holds every Python value the captured step closes over: the
@@ -332,11 +343,13 @@ def block_runner(device, n_nodes: int, max_slots: int, mode: str,
     whether the run is autoscaled (the live mask and the pressure),
     whether telemetry is on (the snapshot rows), the chain capacity
     (:func:`chain_capacity` of the run's ``chains``, 0 with chains off:
-    the chain state's shape), and the registered routing and
-    replacement policies (the step runs every registered routing body
-    and ``where``-chains every replacement priority, so registering a
-    policy makes a new entry).  Everything else a run differs in
-    (routing code, ``unified``, ``cloud``, capacities, policy codes,
+    the chain state's shape), whether vertical scaling is on (the resize
+    fields and the shrink pass), and the registered routing, replacement
+    and resize policies (the step runs every registered routing body and
+    ``where``-chains every replacement priority and, with resize on,
+    every resize body, so registering a policy makes a new entry).
+    Everything else a run differs in (routing code, ``unified``,
+    ``cloud``, capacities, policy codes, the resize code and floor,
     membership, deadlines, the window length and the trace's length) is
     data in the runner's fixed tensors or on the host."""
     device = torch.device(device)
@@ -347,4 +360,5 @@ def block_runner(device, n_nodes: int, max_slots: int, mode: str,
     return _cached(device, n_nodes, max_slots, mode, bool(failing),
                    BLOCK_EVENTS if block is None else int(block),
                    bool(autoscaled), bool(tel), chain_capacity(chains),
-                   ROUTING.specs(), REPLACEMENT.specs())
+                   bool(resize), ROUTING.specs(), REPLACEMENT.specs(),
+                   RESIZE.specs() if resize else ())

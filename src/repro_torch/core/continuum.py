@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from .registry import REPLACEMENT, ROUTING
+from .registry import REPLACEMENT, RESIZE, ROUTING
 from .types import HIT, MISS, ClassMetrics, Policy, Trace
 
 
@@ -182,8 +182,9 @@ class ClusterConfig:
     split, ignored when unified) and ``unified`` (True = one pool).
     Every node materializes two pools — a unified node gets ``(node_mb,
     0)`` and routes both classes to pool 0 — so all pools of the cluster
-    stack on one leading axis.  The vertical-scaling fields of the
-    reference (``resize_policy``/``resize_min_mb``) wait for ROADMAP A11.
+    stack on one leading axis.  ``resize_policy`` (a registered resize
+    policy's name or code; ``None`` turns vertical scaling off) and
+    ``resize_min_mb`` configure every pool's shrink pass.
     """
 
     node_mb: tuple[float, ...]
@@ -194,6 +195,10 @@ class ClusterConfig:
     cloud_rtt_s: float = 0.25         # edge->cloud round trip
     cloud_cold_prob: float = 0.05     # cloud has big warm pools
     max_slots: int = 1024             # per-pool slot count
+    # vertical scaling: a registered resize policy (name | code) shrinks
+    # residents toward observed usage under pressure before evicting
+    resize_policy: int | str | None = None
+    resize_min_mb: float = 0.0
 
     def __post_init__(self):
         n = len(self.node_mb)
@@ -206,6 +211,11 @@ class ClusterConfig:
         pcode = REPLACEMENT.resolve(self.policy)
         object.__setattr__(
             self, "policy", Policy(pcode) if pcode < len(Policy) else pcode)
+        if self.resize_policy is not None:
+            object.__setattr__(self, "resize_policy",
+                               RESIZE.resolve(self.resize_policy))
+        if self.resize_min_mb < 0.0:
+            raise ValueError("resize_min_mb must be >= 0")
 
     @property
     def n_nodes(self) -> int:

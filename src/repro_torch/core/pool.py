@@ -24,9 +24,17 @@ the sort composite under the reference's name, and ``"fused"`` is the
 hand-written CUDA kernel of ``repro_torch.kernels.pool_step``.
 
 :func:`pool_resize` changes the capacities between the autoscaler's
-epochs, evicting through the same ``(priority, seq)`` prefix.  The
-reference's seven vertical-scaling fields stay on the state as ``None``
-defaults; the resize path itself is not ported yet (ROADMAP A11).
+epochs, evicting through the same ``(priority, seq)`` prefix.
+
+Vertical scaling (a pool made with ``PoolConfig.resize_policy``) adds
+seven fields to the state: each resident's limit ``alloc`` and observed
+usage ``used``, the resize policy's code and floor, and the run totals
+behind ``Result.utilization_ratio``/``bottleneck_events``.  A miss first
+shrinks idle residents toward their usage (:func:`_shrink_pass`, the
+resize registry's policy as data), and what an eviction frees, which
+the step backend sums, is then the post-shrink ``alloc``, not ``size``.
+Without a resize policy those fields are ``None`` and the step is the
+static one.
 """
 from __future__ import annotations
 
@@ -37,7 +45,8 @@ import torch
 
 from .._device import resolve_device
 from . import xp
-from .registry import SlotStats, replacement_priority
+from .registry import (RESIZE, ResizeCtx, SlotStats, replacement_priority,
+                       shrink_amounts)
 from .types import DROP, HIT, MISS, Policy, PoolConfig
 
 _INF = float("inf")
@@ -62,14 +71,14 @@ class PoolState(NamedTuple):
     clock: torch.Tensor      # f32 GreedyDual inflation clock
     next_seq: torch.Tensor   # f32
     policy: torch.Tensor     # i32 replacement-policy code
-    # vertical scaling: None until ROADMAP A11 ports it
-    alloc: torch.Tensor | None = None
-    used: torch.Tensor | None = None
-    rz_policy: torch.Tensor | None = None
-    rz_min: torch.Tensor | None = None
-    acc_used: torch.Tensor | None = None
-    acc_alloc: torch.Tensor | None = None
-    bneck: torch.Tensor | None = None
+    # vertical scaling (all None when resize is off)
+    alloc: torch.Tensor | None = None      # f32[S] current limit (MB)
+    used: torch.Tensor | None = None       # f32[S] observed usage (MB)
+    rz_policy: torch.Tensor | None = None  # i32 resize-policy code
+    rz_min: torch.Tensor | None = None     # f32 limit floor (MB)
+    acc_used: torch.Tensor | None = None   # f32 used summed over served
+    acc_alloc: torch.Tensor | None = None  # f32 alloc summed over served
+    bneck: torch.Tensor | None = None      # i32 hits on shrunken residents
 
 
 #: The dtype of every static field, as the reference keeps it.
@@ -82,7 +91,13 @@ STATE_DTYPES = {
     "clock": torch.float32, "next_seq": torch.float32,
     "policy": torch.int32,
 }
-_RESIZE_FIELDS = PoolState._fields[len(STATE_DTYPES):]
+#: The dtype of every vertical-scaling field, as the reference keeps it.
+RESIZE_DTYPES = {
+    "alloc": torch.float32, "used": torch.float32,
+    "rz_policy": torch.int32, "rz_min": torch.float32,
+    "acc_used": torch.float32, "acc_alloc": torch.float32,
+    "bneck": torch.int32,
+}
 
 
 class Event(NamedTuple):
@@ -94,13 +109,9 @@ class Event(NamedTuple):
     cls: torch.Tensor
     warm: torch.Tensor
     cold: torch.Tensor
-    used: torch.Tensor | None = None   # resize only (ROADMAP A11)
-
-
-def _no_resize(p: PoolState) -> None:
-    if p.alloc is not None:
-        raise NotImplementedError(
-            "vertical scaling (resize) is not ported yet (ROADMAP A11)")
+    # observed usage of the launched container (``observed_usage``);
+    # None when resize is off
+    used: torch.Tensor | None = None
 
 
 def init_pool(cfg: PoolConfig, device=None) -> PoolState:
@@ -109,6 +120,16 @@ def init_pool(cfg: PoolConfig, device=None) -> PoolState:
     device = resolve_device(device)
     s = cfg.max_slots
     f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    rz = {}
+    if cfg.resize_policy is not None:
+        rz = dict(alloc=torch.zeros(s, **f32), used=torch.zeros(s, **f32),
+                  rz_policy=torch.tensor(RESIZE.resolve(cfg.resize_policy),
+                                         **i32),
+                  rz_min=torch.tensor(cfg.resize_min_mb, **f32),
+                  acc_used=torch.tensor(0.0, **f32),
+                  acc_alloc=torch.tensor(0.0, **f32),
+                  bneck=torch.tensor(0, **i32))
     return PoolState(
         func_id=torch.full((s,), -1, dtype=torch.int32, device=device),
         size=torch.zeros(s, **f32),
@@ -124,6 +145,7 @@ def init_pool(cfg: PoolConfig, device=None) -> PoolState:
         next_seq=torch.tensor(1.0, **f32),
         policy=torch.tensor(int(cfg.policy), dtype=torch.int32,
                             device=device),
+        **rz,
     )
 
 
@@ -133,19 +155,21 @@ def pool_state_from_numpy(fields: Mapping[str, np.ndarray],
     numpy arrays (``{k: np.asarray(v) for k, v in
     state._asdict().items() if v is not None}``), single or stacked —
     the simulator's equivalent of loading weights.  Each field gets the
-    reference's dtype explicitly."""
+    reference's dtype explicitly.  A resize-enabled state brings all
+    seven vertical-scaling fields, a static one none of them."""
+    fields = {k: v for k, v in fields.items() if v is not None}
     unknown = set(fields) - set(PoolState._fields)
     if unknown:
         raise ValueError(f"not PoolState fields: {sorted(unknown)}")
-    if any(fields.get(f) is not None for f in _RESIZE_FIELDS):
-        raise NotImplementedError(
-            "resize-enabled pool states are not ported yet (ROADMAP A11)")
-    missing = set(STATE_DTYPES) - set(fields)
+    dtypes = dict(STATE_DTYPES)
+    if any(f in fields for f in RESIZE_DTYPES):
+        dtypes.update(RESIZE_DTYPES)
+    missing = set(dtypes) - set(fields)
     if missing:
         raise ValueError(f"missing PoolState fields: {sorted(missing)}")
     return PoolState(**{
         k: torch.tensor(np.asarray(fields[k]), dtype=dt, device=device)
-        for k, dt in STATE_DTYPES.items()})
+        for k, dt in dtypes.items()})
 
 
 def stack_pools(states) -> PoolState:
@@ -164,6 +188,23 @@ def _priority(p: PoolState) -> torch.Tensor:
     stats = SlotStats(last_use=p.last_use, freq=p.freq, gd_pri=p.gd_pri,
                       size=p.size, busy_until=p.busy_until)
     return replacement_priority(xp, p.policy.unsqueeze(-1), stats)
+
+
+def _shrink_pass(p: PoolState, idle: torch.Tensor, want: torch.Tensor):
+    """The miss path's vertical-scaling shrink pass over the batched
+    ``[P, S]`` layout: the registered resize policy (its code as data)
+    proposes limits, :func:`~repro_torch.core.registry.shrink_amounts`
+    clamps them, and the pass returns ``(alloc_after f32[P, S],
+    reclaimed f32[P])``.  The per-pool scalars enter ``ResizeCtx`` as
+    ``[P, 1]`` columns, so the policies' ``axis=-1`` sums line up."""
+    def col(x):
+        return x.unsqueeze(-1)
+    ctx = ResizeCtx(used=p.used, alloc=p.alloc, size=p.size, idle=idle,
+                    valid=p.valid, min_mb=col(p.rz_min),
+                    deficit=col(torch.clamp_min(want, 0.0)),
+                    free=col(p.free), capacity=col(p.capacity))
+    shrink = shrink_amounts(xp, col(p.rz_policy), ctx)
+    return p.alloc - shrink, shrink.sum(-1)
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -262,9 +303,11 @@ def pool_step_batch(p: PoolState, ev: Event, evict_place):
     (hit / miss / drop) and new state are computed for every pool
     against the same event, and the caller keeps the rows it routed to.
     The miss path's evict-and-place decision is delegated to
-    ``evict_place`` (a registered step backend).  Returns ``(new_state,
-    outcome i32[P])``."""
-    _no_resize(p)
+    ``evict_place`` (a registered step backend).  With resize on, a miss
+    first runs the shrink pass, and the backend's byte column is the
+    post-shrink ``alloc`` (what an eviction frees; the eviction order
+    never reads it).  Returns ``(new_state, outcome i32[P])``."""
+    rz = p.alloc is not None
     slots = torch.arange(p.func_id.shape[-1], device=p.func_id.device)
     idle = p.valid & (p.busy_until <= ev.t)          # [P, S]
     match = idle & (p.func_id == ev.func_id)
@@ -275,21 +318,38 @@ def pool_step_batch(p: PoolState, ev: Event, evict_place):
     hit_slot = torch.where(match, p.seq, _INF).argmin(-1, keepdim=True)
     hit_oh = slots == hit_slot                       # [P, S]
     new_freq = p.freq.gather(-1, hit_slot) + 1.0     # [P, 1]
+    hit_size = p.size.gather(-1, hit_slot)           # [P, 1]
+    hit_extra = {}
+    if rz:
+        hit_alloc = p.alloc.gather(-1, hit_slot)
+        hit_extra = dict(
+            acc_used=p.acc_used + p.used.gather(-1, hit_slot).squeeze(-1),
+            acc_alloc=p.acc_alloc + hit_alloc.squeeze(-1),
+            # a resident serving from a shrunken limit is a bottleneck
+            bneck=p.bneck + (hit_alloc < hit_size).squeeze(-1).to(
+                torch.int32))
     hit_state = p._replace(
         last_use=torch.where(hit_oh, ev.t, p.last_use),
         freq=torch.where(hit_oh, new_freq, p.freq),
         gd_pri=torch.where(
             hit_oh, _gd(p.clock.unsqueeze(-1), new_freq, cold_cost,
-                        p.size.gather(-1, hit_slot)), p.gd_pri),
+                        hit_size), p.gd_pri),
         busy_until=torch.where(hit_oh, ev.t + ev.warm, p.busy_until),
+        **hit_extra,
     )
 
-    # ---- MISS branch: the backend evicts the (priority, seq)-prefix,
-    # then the new container goes into the first empty slot ------------
-    deficit = ev.size - p.free                       # [P]
+    # ---- MISS branch: shrink idle residents (resize only), then the
+    # backend evicts the (priority, seq)-prefix, then the new container
+    # goes into the first empty slot ------------------------------------
+    if rz:
+        alloc1, reclaimed = _shrink_pass(p, idle, ev.size - p.free)
+        free1 = p.free + reclaimed
+    else:
+        alloc1, free1 = p.size, p.free
+    deficit = ev.size - free1                        # [P]
     pri = torch.where(idle, _priority(p), _INF)
     evict, freed, ins, avail, empty_exists = evict_place(
-        pri, p.seq, p.size, idle, p.valid, deficit)
+        pri, p.seq, alloc1, idle, p.valid, deficit)
 
     can_place = ((ev.size <= p.capacity + 1e-9)
                  & (avail >= deficit - 1e-9)
@@ -302,6 +362,15 @@ def pool_step_batch(p: PoolState, ev: Event, evict_place):
                       torch.where(evict, p.gd_pri, -_INF).amax(-1)),
         p.clock)
     ins_oh = slots == ins.unsqueeze(-1)              # [P, S]
+    miss_extra = {}
+    if rz:
+        miss_extra = dict(
+            alloc=torch.where(ins_oh, ev.size,
+                              torch.where(evict, 0.0, alloc1)),
+            used=torch.where(ins_oh, ev.used,
+                             torch.where(evict, 0.0, p.used)),
+            acc_used=p.acc_used + ev.used,
+            acc_alloc=p.acc_alloc + ev.size)
     miss_state = p._replace(
         func_id=torch.where(ins_oh, ev.func_id, p.func_id),
         size=torch.where(ins_oh, ev.size, p.size),
@@ -313,9 +382,10 @@ def pool_step_batch(p: PoolState, ev: Event, evict_place):
         busy_until=torch.where(ins_oh, ev.t + ev.cold, p.busy_until),
         seq=torch.where(ins_oh, p.next_seq.unsqueeze(-1), p.seq),
         valid=(p.valid & ~evict) | ins_oh,
-        free=p.free + freed - ev.size,
+        free=free1 + freed - ev.size,
         clock=new_clock,
         next_seq=p.next_seq + 1.0,
+        **miss_extra,
     )
 
     # ---- select ----
@@ -349,11 +419,16 @@ def pool_resize(p: PoolState, now: torch.Tensor,
     a hard shrink can leave ``free`` negative, which blocks admissions
     until they drain.  Unlike the miss path, the eviction does not move
     the GreedyDual clock.  ``now`` (a 0-d tensor) is the epoch's last
-    event time."""
-    _no_resize(p)
-    used = torch.where(p.valid, p.size, 0.0).sum(-1)          # [P]
+    event time.  With resize on, a resident holds (and an eviction
+    frees) its ``alloc``, and an evicted slot's ``alloc``/``used`` are
+    zeroed."""
+    rz = p.alloc is not None
+    held = p.alloc if rz else p.size                 # what eviction frees
+    used = torch.where(p.valid, held, 0.0).sum(-1)            # [P]
     idle = p.valid & (p.busy_until <= now)
     evict, freed = _evict_prefix(torch.where(idle, _priority(p), _INF),
-                                 p.seq, p.size, idle, used - new_capacity)
+                                 p.seq, held, idle, used - new_capacity)
+    extra = {} if not rz else dict(alloc=torch.where(evict, 0.0, p.alloc),
+                                   used=torch.where(evict, 0.0, p.used))
     return p._replace(valid=p.valid & ~evict, capacity=new_capacity,
-                      free=new_capacity - (used - freed))
+                      free=new_capacity - (used - freed), **extra)

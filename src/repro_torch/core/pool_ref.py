@@ -3,9 +3,11 @@
 
 A dynamic set of containers with greedy sequential eviction in
 replacement-policy order, f32-mirrored step by step like the reference.
-This slice carries the static pool: ``PoolConfig.resize_policy`` stays
-``None`` (vertical scaling is ROADMAP A11), so the reference's resize-on
-branches of ``access`` and ``resize`` have no counterpart here.
+With ``PoolConfig.resize_policy`` set, a cold start first plans a
+shrink of the idle residents toward their observed usage (the resize
+registry's ``shrink_amounts`` over numpy), evicts only what that cannot
+cover, and keeps the run totals ``acc_used``/``acc_alloc``/``bneck``, as
+the reference's pool does; the serving runtime runs it without.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import operator
 
 import numpy as np
 
-from .registry import REPLACEMENT, SlotStats
+from .registry import (REPLACEMENT, RESIZE, ResizeCtx, SlotStats,
+                       observed_usage, shrink_amounts)
 from .types import ClassMetrics, Policy, PoolConfig
 
 _ids = itertools.count()
@@ -43,8 +46,9 @@ class Container:
     freq: float              # hit count on this container (1 at launch)
     gd_priority: float       # GreedyDual priority at last touch
     busy_until: float
-    # the memory limit and observed usage of the reference's vertical
-    # scaling; both equal size_mb in a static pool
+    # vertical scaling: the current memory limit (shrinks under pressure,
+    # never below max(min_mb, used_mb)) and the observed usage; both
+    # equal size_mb in a pool without a resize policy
     alloc_mb: float = 0.0
     used_mb: float = 0.0
     uid: int = dataclasses.field(default_factory=lambda: next(_ids))
@@ -68,6 +72,13 @@ class WarmPool:
         code = REPLACEMENT.resolve(cfg.policy)
         self._fast_pri = _FAST_PRIORITY.get(code)
         self._pri_fn = REPLACEMENT.spec(code).fn
+        # vertical scaling: the resize policy's code (None = off) and the
+        # run totals behind the utilization metrics
+        self._rz_code = (None if cfg.resize_policy is None
+                         else RESIZE.resolve(cfg.resize_policy))
+        self.acc_used = 0.0    # f32 sum of used_mb over served events
+        self.acc_alloc = 0.0   # f32 sum of alloc_mb over served events
+        self.bneck = 0         # hits served from a shrunken limit
         # set by access(): containers evicted by the last event — lets the
         # serving runtime destroy the corresponding real model instances.
         self.last_victims: list[Container] = []
@@ -97,6 +108,7 @@ class WarmPool:
         idle = [c for c in self.containers
                 if c.func_id == func_id and c.busy_until <= t]
         cold_cost = _f32(_f32(cold_dur) - _f32(warm_dur))
+        rz = self._rz_code is not None
         if idle:
             c = min(idle, key=lambda c: c.uid)
             c.last_use = t
@@ -105,13 +117,48 @@ class WarmPool:
             c.busy_until = _f32(_f32(t) + _f32(warm_dur))
             metrics.hits += 1
             metrics.exec_time = _f32(_f32(metrics.exec_time) + _f32(warm_dur))
+            if rz:
+                self.acc_used = _f32(_f32(self.acc_used) + _f32(c.used_mb))
+                self.acc_alloc = _f32(_f32(self.acc_alloc)
+                                      + _f32(c.alloc_mb))
+                self.bneck += int(c.alloc_mb < c.size_mb)
             return "hit"
 
         # 2) cold start: must place a new container of size_mb.
         if size_mb > self.cfg.capacity_mb + 1e-9:
             metrics.drops += 1
             return "drop"
-        deficit = size_mb - self.free_mb
+        # 2a) vertical scaling: plan the shrink pass (residents give up
+        #     headroom toward their usage before anything is evicted),
+        #     but commit nothing until the drop checks pass: a dropped
+        #     event leaves the pool untouched.
+        shrink_plan: list[tuple[Container, float]] = []
+        free1 = self.free_mb
+        if rz and self.containers:
+            cs = list(self.containers)
+            want = _f32(_f32(size_mb) - _f32(self.free_mb))
+            ctx = ResizeCtx(
+                used=np.array([c.used_mb for c in cs], np.float32),
+                alloc=np.array([c.alloc_mb for c in cs], np.float32),
+                size=np.array([c.size_mb for c in cs], np.float32),
+                idle=np.array([c.busy_until <= t for c in cs], bool),
+                valid=np.ones(len(cs), bool),
+                min_mb=np.float32(self.cfg.resize_min_mb),
+                deficit=np.float32(max(want, 0.0)),
+                free=np.float32(self.free_mb),
+                capacity=np.float32(self.cfg.capacity_mb))
+            shrink = shrink_amounts(np, np.int32(self._rz_code), ctx)
+            shrink_plan = [(c, float(s)) for c, s in zip(cs, shrink)
+                           if s > 0.0]
+            free1 = _f32(_f32(self.free_mb) + _f32(float(np.sum(shrink))))
+        alloc_after = {c.uid: _f32(_f32(c.alloc_mb) - _f32(s))
+                       for c, s in shrink_plan}
+
+        def held(c: Container) -> float:
+            """What evicting ``c`` frees: its post-shrink limit."""
+            return alloc_after.get(c.uid, c.alloc_mb) if rz else c.size_mb
+
+        deficit = size_mb - free1
         victims: list[Container] = []
         if deficit > 1e-9:
             evictable = sorted(
@@ -122,7 +169,7 @@ class WarmPool:
                 if freed >= deficit - 1e-9:
                     break
                 victims.append(c)
-                freed += c.size_mb
+                freed += held(c)
             if freed < deficit - 1e-9:
                 metrics.drops += 1
                 return "drop"
@@ -131,9 +178,12 @@ class WarmPool:
         if len(self.containers) - len(victims) >= self.cfg.max_slots:
             metrics.drops += 1
             return "drop"
+        for c, _ in shrink_plan:
+            c.alloc_mb = alloc_after[c.uid]
+        self.free_mb = free1
         for c in victims:
             self.containers.remove(c)
-            self.free_mb += c.size_mb
+            self.free_mb += held(c)
             if self.cfg.policy == Policy.GREEDY_DUAL:
                 self.clock = max(self.clock, c.gd_priority)
         self.last_victims = victims
@@ -141,11 +191,17 @@ class WarmPool:
                         freq=1.0,
                         gd_priority=self._gd(1.0, cold_cost, size_mb),
                         busy_until=_f32(_f32(t) + _f32(cold_dur)),
-                        alloc_mb=size_mb, used_mb=size_mb)
+                        alloc_mb=size_mb,
+                        used_mb=(float(observed_usage(
+                            np, np.int32(func_id), np.float32(size_mb)))
+                            if rz else size_mb))
         self.containers.append(new)
         self.free_mb -= size_mb
         metrics.misses += 1
         metrics.exec_time = _f32(_f32(metrics.exec_time) + _f32(cold_dur))
+        if rz:
+            self.acc_used = _f32(_f32(self.acc_used) + _f32(new.used_mb))
+            self.acc_alloc = _f32(_f32(self.acc_alloc) + _f32(size_mb))
         return "miss"
 
     # -- capacity changes (autoscaling) -------------------------------------
@@ -155,9 +211,12 @@ class WarmPool:
         Evicts lowest-``(priority, uid)`` *idle* containers until the new
         capacity is respected; busy containers survive, so a hard shrink
         can leave ``free_mb`` negative.  Eviction here does not inflate
-        the GreedyDual clock.  Returns the victims (also in
+        the GreedyDual clock.  With resize on, a resident holds (and its
+        eviction frees) its ``alloc_mb``.  Returns the victims (also in
         ``last_victims``)."""
-        used = sum(c.size_mb for c in self.containers)
+        rz = self._rz_code is not None
+        used = sum((c.alloc_mb if rz else c.size_mb)
+                   for c in self.containers)
         deficit = float(_f32(_f32(used) - _f32(new_capacity_mb)))
         victims: list[Container] = []
         freed = 0.0
@@ -166,7 +225,7 @@ class WarmPool:
             if freed >= deficit - 1e-9:
                 break
             victims.append(c)
-            freed += c.size_mb
+            freed += c.alloc_mb if rz else c.size_mb
         for c in victims:
             self.containers.remove(c)
         self.cfg = dataclasses.replace(self.cfg,
@@ -192,6 +251,7 @@ class WarmPool:
         return self.cfg.capacity_mb - self.free_mb
 
     def occupancy_ok(self) -> bool:
-        used = sum(c.size_mb for c in self.containers)
+        used = sum((c.alloc_mb if self._rz_code is not None else c.size_mb)
+                   for c in self.containers)
         return math.isclose(used, self.used_mb, rel_tol=1e-6, abs_tol=1e-6) \
             and used <= self.cfg.capacity_mb + 1e-6

@@ -13,8 +13,13 @@ reference's ``repro.sim.policies`` does.  A code is data in the engine
 (``replacement_priority`` where-chains every registered replacement;
 the cluster step evaluates every registered routing and selects one).
 
-The vertical-scaling registry (``RESIZE``, ``shrink_amounts``,
-``observed_usage``) is not ported yet (ROADMAP A11).
+The vertical-scaling registry ``RESIZE`` works the same way: a resize
+policy is ``fn(xp, ctx)`` over a :class:`ResizeCtx` and proposes
+per-resident memory limits; :func:`shrink_amounts` runs every registered
+policy as a ``where``-chain on the code and clamps the proposal to the
+engine's contract.  :func:`observed_usage` is host numpy only (its
+uint32 hash wraps as numpy's does; torch cannot shift uint32 on the
+CPU), called with ``np`` as both of the reference's call sites do.
 """
 from __future__ import annotations
 
@@ -44,6 +49,30 @@ class RouteCtx(NamedTuple):
     node_up: object = None   # bool[N] live-node mask (engines populate)
     chain_slack: object = None  # f32  remaining chain slack (s), +inf off
     chain_stage: object = None  # i32  stage within chain, -1 off
+
+
+class ResizeCtx(NamedTuple):
+    """Inputs available to a vertical-scaling (resize) decision.
+
+    A resize policy sees one pool's per-slot state under memory pressure
+    and proposes new per-resident memory limits; the engine then clamps
+    the proposal (never below ``max(min_mb, used)``, never above the
+    current ``alloc``, busy or empty slots untouched) and floors the
+    shrink to whole MB so that f32 byte sums stay exact in any order.
+    Per-slot arrays are f32[S] (f32[P, S] in the batched step); the
+    scalars broadcast against the slot axis in both layouts (``[P, 1]``
+    columns in the batched step), so reductions inside a policy use
+    ``xp.sum(..., axis=-1, keepdims=True)``."""
+
+    used: object      # f32[S]  observed usage per resident (MB)
+    alloc: object     # f32[S]  current memory limit per resident (MB)
+    size: object      # f32[S]  launch footprint per resident (MB)
+    idle: object      # bool[S] resident and not busy (shrinkable)
+    valid: object     # bool[S] slot holds a resident
+    min_mb: object    # f32     configured floor for any limit
+    deficit: object   # f32     bytes still needed after free (>= 0)
+    free: object      # f32     pool free MB before shrinking
+    capacity: object  # f32     pool capacity MB
 
 
 class SlotStats(NamedTuple):
@@ -138,9 +167,11 @@ class PolicyRegistry:
 
 ROUTING = PolicyRegistry("routing")
 REPLACEMENT = PolicyRegistry("replacement")
+RESIZE = PolicyRegistry("resize")
 
 register_routing = ROUTING.register
 register_replacement = REPLACEMENT.register
+register_resize_policy = RESIZE.register
 
 
 def routing_policies() -> list[str]:
@@ -151,6 +182,11 @@ def routing_policies() -> list[str]:
 def replacement_policies() -> list[str]:
     """Names of all registered replacement policies, in code order."""
     return REPLACEMENT.names()
+
+
+def resize_policies() -> list[str]:
+    """Names of all registered resize (vertical-scaling) policies."""
+    return RESIZE.names()
 
 
 # --------------------------------------------------------------------------
@@ -232,3 +268,72 @@ def replacement_priority(xp, policy, stats: SlotStats):
     for spec in specs[1:]:
         out = xp.where(policy == spec.code, spec.fn(xp, stats), out)
     return out
+
+
+# --------------------------------------------------------------------------
+# built-in resize (vertical-scaling) policies, bodies as in the reference
+# --------------------------------------------------------------------------
+# A resize policy returns *proposed* per-slot limits; shrink_amounts
+# clamps them to [max(min_mb, used), alloc] and floors the shrink to
+# whole MB, so a policy never enforces its own floors.
+
+@register_resize_policy("static")
+def _static(xp, ctx: ResizeCtx):
+    """No-op: every resident keeps its current limit (KiSS-static, with
+    the utilization metrics recorded)."""
+    return ctx.alloc
+
+
+@register_resize_policy("fair_share")
+def _fair_share(xp, ctx: ResizeCtx):
+    """LaSS-style proportional reclamation: every idle resident gives up
+    the same fraction of its reclaimable headroom ``alloc - max(min_mb,
+    used)``, scaled so that the total just covers the deficit (or all of
+    it, whichever is smaller)."""
+    floor = xp.maximum(ctx.min_mb, ctx.used)
+    headroom = xp.where(ctx.idle & ctx.valid,
+                        xp.maximum(ctx.alloc - floor, xp.float32(0.0)),
+                        xp.float32(0.0))
+    total = xp.sum(headroom, axis=-1, keepdims=True)
+    ratio = xp.minimum(ctx.deficit / xp.maximum(total, xp.float32(1e-6)),
+                       xp.float32(1.0))
+    return ctx.alloc - headroom * ratio
+
+
+def resize_limits(xp, policy, ctx: ResizeCtx):
+    """Proposed per-slot limits for ``policy`` carried as data: a
+    ``where``-chain over every registered resize policy."""
+    specs = RESIZE.specs()
+    out = specs[0].fn(xp, ctx)
+    for spec in specs[1:]:
+        out = xp.where(policy == spec.code, spec.fn(xp, ctx), out)
+    return out
+
+
+def shrink_amounts(xp, policy, ctx: ResizeCtx):
+    """Per-slot shrink (MB) for ``policy``: the registered policy chain,
+    then the engine contract (a limit never drops below ``max(min_mb,
+    used)`` and never grows, only idle residents shrink, and the shrink
+    is floored to whole MB).  The pool step and the sequential pool both
+    call this one function."""
+    proposal = resize_limits(xp, policy, ctx)
+    floor = xp.maximum(ctx.min_mb, ctx.used)
+    headroom = xp.maximum(ctx.alloc - floor, xp.float32(0.0))
+    shrink = xp.clip(ctx.alloc - proposal, xp.float32(0.0), headroom)
+    return xp.where(ctx.idle & ctx.valid, xp.floor(shrink),
+                    xp.float32(0.0))
+
+
+def observed_usage(xp, func_id, size):
+    """Deterministic per-function observed memory usage (MB): a
+    Knuth-hash fraction in [~0.55, ~0.95) of the launch footprint,
+    floored to whole MB, and at least ``min(size, 1)``.  Called with
+    ``xp = numpy`` on host arrays (the uint32 hash wraps by design)."""
+    import numpy as _np
+    with _np.errstate(over="ignore"):   # uint32 hash wraps by design
+        h = ((func_id.astype(xp.uint32) * xp.uint32(2654435761))
+             >> xp.uint32(20))
+    num = (h % xp.uint32(103)).astype(xp.float32) + xp.float32(140.0)
+    u = xp.floor(size.astype(xp.float32) * num * xp.float32(1.0 / 256.0))
+    return xp.maximum(u, xp.minimum(size.astype(xp.float32),
+                                    xp.float32(1.0)))

@@ -119,20 +119,19 @@ class Trace(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class PoolConfig:
-    """One warm pool.  ``resize_policy`` (vertical scaling) must stay
-    ``None`` until ROADMAP A11 ports the resize registry."""
+    """One warm pool.
+
+    ``resize_policy`` (a registered resize-policy code or name, or
+    ``None``) turns on vertical scaling: under memory pressure the miss
+    path first shrinks idle residents toward their observed usage (never
+    below ``max(resize_min_mb, used)``) and evicts only what shrinking
+    cannot cover.  ``None`` runs the pool without the resize fields."""
 
     capacity_mb: float
     policy: Policy = Policy.LRU
     max_slots: int = 1024  # fixed slot count of the pool state
-    resize_policy: int | None = None
+    resize_policy: int | str | None = None
     resize_min_mb: float = 0.0
-
-    def __post_init__(self):
-        if self.resize_policy is not None:
-            raise NotImplementedError(
-                "PoolConfig(resize_policy=...): vertical scaling is "
-                "ROADMAP A11, not yet ported")
 
 
 @dataclasses.dataclass(frozen=True)

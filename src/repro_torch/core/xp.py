@@ -10,7 +10,8 @@ spelling, so the bodies are the reference's own text:
 * ``xp.mod`` is ``torch.remainder`` (the sign of the divisor, as numpy);
 * ``xp.argmax``/``xp.argmin`` of a bool array cast it to ``uint8`` first
   (torch's ``argmax`` takes no bools) and keep the first-index tie rule;
-* ``xp.maximum`` takes a Python number on either side;
+* ``xp.maximum``/``xp.minimum`` take a Python number on either side,
+  and ``xp.clip`` is ``minimum(maximum(a, lo), hi)``, as numpy's;
 * ctx arrays are :class:`XTensor`, which adds ``.astype`` and reads
   ``a[i]`` at a 0-d index tensor with ``index_select``, so that reading
   one node's entry never copies the index to the host.
@@ -87,14 +88,33 @@ def maximum(a, b):
     return torch.maximum(a, b)
 
 
+def minimum(a, b):
+    if _number(b):
+        return torch.clamp_max(a, b)
+    if _number(a):
+        return torch.clamp_max(b, a)
+    return torch.minimum(a, b)
+
+
+def clip(a, lo, hi):
+    return minimum(maximum(a, lo), hi)
+
+
+def floor(x):
+    return torch.floor(x)
+
+
 def mod(a, b):
     return torch.remainder(a, b)
 
 
-# Reductions over the whole array, as the policy bodies use them.
+# Reductions, as the policy bodies use them: over the whole array, or
+# along one axis (the resize bodies' ``axis=-1, keepdims=True``).
 
-def sum(x):  # noqa: A001 (numpy's name)
-    return torch.sum(x)
+def sum(x, axis=None, keepdims=False):  # noqa: A001 (numpy's name)
+    if axis is None:
+        return torch.sum(x)
+    return torch.sum(x, dim=axis, keepdim=keepdims)
 
 
 def cumsum(x):

@@ -7,8 +7,8 @@ mode is one of ``STEP_MODES`` (``"gather"``, ``"vmap"``, ``"fused"``),
 all bitwise equal; ``"fused"`` runs the hand-written CUDA kernel of
 ``repro_torch.kernels.pool_step`` on a CUDA device and its plain torch
 version on the CPU.  A scenario with ``failures``, ``autoscale``,
-``telemetry`` or ``chains`` and a run with ``chunk_events`` give bitwise
-the reference's results.  Not ported yet: ``sweep`` (ROADMAP A12) and
+``telemetry``, ``chains`` or ``resize`` and a run with ``chunk_events``
+give bitwise the reference's results.  Not ported yet: ``sweep`` (ROADMAP A12) and
 the numpy oracle ``engine="ref"`` (A14).
 """
 from __future__ import annotations
@@ -66,7 +66,9 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
     ``active`` and ``epoch_t`` (and ``invalidated``: retirements); one
     with ``telemetry`` fills ``Result.telemetry`` (``timeline()``), and
     one with ``chains``, on a chained trace, ``Result.chains``
-    (``chain_metrics()``).  ``device`` is where the run happens:
+    (``chain_metrics()``), and one with ``resize`` ``Result.vertical``
+    (``utilization_ratio``, ``bottleneck_events``).  ``device`` is where
+    the run happens:
     ``None`` means ``"cuda"``."""
     if engine == "ref":
         raise NotImplementedError(
@@ -107,7 +109,8 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
                       extras["telemetry"], trace, telw)),
                   chains=(None if plan is None else metrics_from_arrays(
                       extras["chains"], plan)),
-                  run_info=info, epoch_t=ep_t)
+                  run_info=info, epoch_t=ep_t,
+                  vertical=extras.get("vertical"))
 
 
 def _epoch_times(trace: Trace, epoch_events: int) -> np.ndarray | None:

@@ -2,9 +2,8 @@
 ``repro.sim.result``).
 
 ``summary()`` returns every key of the reference's :data:`SUMMARY_KEYS`,
-in order.  The keys of vertical scaling, which the port does not run yet
-(ROADMAP A11), take the inert values the reference reports when the
-feature is off.
+in order; the keys of a feature a scenario does not turn on take the
+reference's inert values.
 """
 from __future__ import annotations
 
@@ -74,6 +73,10 @@ class Result:
     run_info: dict | None = None
     #: f32[E] event time at each epoch boundary (autoscaled runs only)
     epoch_t: np.ndarray | None = None
+    #: vertical-scaling run totals (``None`` unless the scenario set
+    #: ``resize=``): ``{"acc_used_mb", "acc_alloc_mb", "bottlenecks"}``
+    #: per pool in the stacked node-major [2N] layout
+    vertical: dict | None = None
 
     # -- per-event arrays --------------------------------------------------
     @property
@@ -220,6 +223,32 @@ class Result:
         """Percent of completed chains that missed their deadline."""
         return self.chain_metrics().deadline_miss_pct
 
+    # -- vertical-scaling views (Scenario resize=...) -----------------------
+    @property
+    def utilization_ratio(self) -> float:
+        """Observed-used over allocated memory, summed over every served
+        event: how much of what the pools reserved the functions touched
+        (shrinking limits toward usage pushes it toward 1.0).  The
+        per-pool f32 totals are summed on the host in f64; 0.0 without
+        ``resize=``."""
+        if self.vertical is None:
+            return 0.0
+        alloc = float(np.sum(self.vertical["acc_alloc_mb"],
+                             dtype=np.float64))
+        if alloc <= 0.0:
+            return 0.0
+        used = float(np.sum(self.vertical["acc_used_mb"],
+                            dtype=np.float64))
+        return used / alloc
+
+    @property
+    def bottleneck_events(self) -> int:
+        """Hits served by a container whose limit had been shrunk below
+        its footprint (0 without ``resize=``)."""
+        if self.vertical is None:
+            return 0
+        return int(np.sum(self.vertical["bottlenecks"], dtype=np.int64))
+
     # -- the benchmark-stable summary --------------------------------------
     def summary(self) -> dict:
         """Every key of :data:`SUMMARY_KEYS`, in order."""
@@ -256,8 +285,8 @@ class Result:
                             if self.chains is not None else 0.0),
             "deadline_miss_pct": (self.chains.deadline_miss_pct
                                   if self.chains is not None else 0.0),
-            "utilization_ratio": 0.0,
-            "bottleneck_events": 0,
+            "utilization_ratio": self.utilization_ratio,
+            "bottleneck_events": self.bottleneck_events,
         })
         if tuple(s) != SUMMARY_KEYS:
             raise RuntimeError(

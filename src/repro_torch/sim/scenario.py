@@ -15,10 +15,10 @@ The port runs static, failure-injected (``failures=`` a
 (``autoscale=`` an :class:`~repro_torch.core.continuum.Autoscale` or a
 dict of its arguments), each with telemetry (``telemetry=`` a
 :class:`~repro_torch.sim.telemetry.Telemetry`, a window length in events
-or a dict) and function chains (``chains=`` a
-:class:`~repro_torch.sim.chains.Chains` or a dict); a scenario that sets
-``resize`` raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+or a dict), function chains (``chains=`` a
+:class:`~repro_torch.sim.chains.Chains` or a dict) and vertical scaling
+(``resize=`` a :class:`Resize`, a registered resize-policy name or a
+dict).
 """
 from __future__ import annotations
 
@@ -29,13 +29,35 @@ from typing import Sequence
 import numpy as np
 
 from ..core.continuum import Autoscale, ClusterConfig, Failures
-from ..core.registry import REPLACEMENT, ROUTING
+from ..core.registry import REPLACEMENT, RESIZE, ROUTING
 from .chains import Chains
 from .telemetry import Telemetry
 
-#: Scenario knobs of the reference that the port does not run yet, with
-#: the ROADMAP item that ports each.
-NOT_PORTED = {"resize": "A11"}
+
+@dataclasses.dataclass(frozen=True)
+class Resize:
+    """Vertical scaling: per-container dynamic memory limits.
+
+    With a resize policy set, every resident carries its observed memory
+    usage beside its limit, and a miss under memory pressure first
+    shrinks idle residents toward that usage, as the registered policy
+    proposes and never below ``max(min_mb, used)``, and evicts only what
+    shrinking cannot cover.  A hit on a container whose limit was shrunk
+    below its footprint is a *bottleneck event*;
+    ``Result.utilization_ratio`` and ``Result.bottleneck_events`` show
+    the trade-off.  ``policy`` is a name registered with
+    ``register_resize_policy`` (built-ins: ``"static"``, which proposes
+    no change, and ``"fair_share"``, LaSS-style proportional reclamation
+    of idle headroom); ``min_mb`` is the floor of every limit."""
+
+    policy: str = "fair_share"
+    min_mb: float = 0.0
+
+    def __post_init__(self):
+        object.__setattr__(self, "policy", RESIZE.spec(self.policy).name)
+        object.__setattr__(self, "min_mb", float(self.min_mb))
+        if self.min_mb < 0.0:
+            raise ValueError(f"min_mb must be >= 0, got {self.min_mb}")
 
 
 def _is_seq(x) -> bool:
@@ -80,11 +102,6 @@ class Scenario:
     name: str = ""
 
     def __post_init__(self):
-        for knob, item in NOT_PORTED.items():
-            if getattr(self, knob) is not None:
-                raise NotImplementedError(
-                    f"Scenario({knob}=...) is not in the PyTorch port yet "
-                    f"(ROADMAP {item}); use repro.sim for it")
         nm = self.node_mb
         if not _is_seq(nm):
             nm = (nm,)
@@ -165,6 +182,17 @@ class Scenario:
                     "chains must be a Chains, a kwargs dict, or None, "
                     f"got {c!r}")
             object.__setattr__(self, "chains", c)
+        if self.resize is not None:
+            r = self.resize
+            if isinstance(r, str):
+                r = Resize(policy=r)
+            elif isinstance(r, dict):
+                r = Resize(**r)
+            if not isinstance(r, Resize):
+                raise ValueError(
+                    "resize must be a Resize, a registered resize-policy "
+                    f"name, a kwargs dict, or None, got {r!r}")
+            object.__setattr__(self, "resize", r)
         # canonicalize policies to registered names (raises on unknown)
         object.__setattr__(
             self, "replacement",
@@ -224,8 +252,9 @@ class Scenario:
         asc = "-autoscaled" if self.autoscale is not None else ""
         fail = "-failures" if self.failures is not None else ""
         ch = "-chains" if self.chains is not None else ""
+        rz = "-resize" if self.resize is not None else ""
         return (f"{kind}-{self.n_nodes}n-{self.routing}"
-                f"-{self.replacement}{asc}{fail}{ch}")
+                f"-{self.replacement}{asc}{fail}{ch}{rz}")
 
     def to_cluster_config(self) -> ClusterConfig:
         """The engine-level config."""
@@ -236,4 +265,8 @@ class Scenario:
             routing=ROUTING.resolve(self.routing),
             cloud_rtt_s=self.cloud_rtt_s,
             cloud_cold_prob=self.cloud_cold_prob,
-            max_slots=self.max_slots)
+            max_slots=self.max_slots,
+            resize_policy=(None if self.resize is None
+                           else RESIZE.resolve(self.resize.policy)),
+            resize_min_mb=(0.0 if self.resize is None
+                           else self.resize.min_mb))

@@ -409,7 +409,7 @@ def test_runner_cache_key_separates_the_autoscaled_flavour():
 def test_validation_errors(qtrace):
     """The reference's checks, in the port's ``Scenario`` and
     ``Autoscale``; ``chunk_events`` with autoscale raises ``ValueError``
-    as in the reference; the unported knob still names its item."""
+    as in the reference, and so does a ``resize`` that is not one."""
     sc = T.Scenario.kiss(1024.0, autoscale={"epoch_events": 64})
     assert sc.autoscale == T.Autoscale(epoch_events=64)
     assert sc.label == "kiss-1n-sticky-lru-autoscaled"
@@ -433,7 +433,8 @@ def test_validation_errors(qtrace):
     with pytest.raises(ValueError, match="chunk_events"):
         T.simulate(het4(T), PortTrace(*qtrace), chunk_events=100,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    # resize is ported (ROADMAP A11): a bad value raises as in the reference
+    with pytest.raises(ValueError, match="resize"):
         T.Scenario.kiss(1024.0, resize=object())
 
 

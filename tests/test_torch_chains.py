@@ -9,7 +9,8 @@ chain summary keys and telemetry's ``chain_miss`` for every routing
 ``slack``}, static and with a node outage, and one autoscaled case;
 chunked == monolithic; ``slack_aware`` reading each event's real slack
 (a tight SLO under an outage routes otherwise than no SLO); the
-deadline semantics on a hand-built trace; the knob and its errors; the
+deadline semantics on a hand-built trace; a finished chunked result
+keeping its arrays after the next run; the knob and its errors; the
 port's ``chained_trace`` and its stored benchmark trace against the
 reference's; and the JAX side of ``chip_smoke.GOLDEN_CHAIN``.  On the
 card (``cuda``): the graph path == the CPU run.  The reference (and
@@ -141,6 +142,23 @@ def test_chunked_equals_monolithic(ref_runs, ctr, chunk):
                        chunk_events=chunk, device="cpu")
         assert_chains_equal(ref_runs("slack_aware", "slack", kind), p,
                             (chunk, kind))
+
+
+def test_chunked_result_keeps_its_arrays_after_the_next_run(ctr):
+    """A chunked run on the CPU goes through the cached block runner,
+    whose chain state the next run on it zeroes: a finished result's
+    per-chain arrays are copies and do not move."""
+    tr = PortTrace(*ctr)
+    scn = T.Scenario.cluster(CLUSTER, max_slots=16, chains=T.Chains(
+        slack=2.0))
+    first = T.simulate(scn, tr, chunk_events=37, device="cpu")
+    kept = {f: getattr(first.chain_metrics(), f).copy()
+            for f in CHAIN_FIELDS}
+    T.simulate(dataclasses.replace(scn, node_mb=(64.0,) * 3),
+               tr.head(10), chunk_events=37, device="cpu")
+    for f in CHAIN_FIELDS:
+        np.testing.assert_array_equal(getattr(first.chain_metrics(), f),
+                                      kept[f], err_msg=f)
 
 
 def test_slack_aware_reads_the_slack(ref, ctr):

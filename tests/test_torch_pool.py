@@ -184,8 +184,18 @@ def test_pool_state_from_numpy_validates():
     with pytest.raises(ValueError, match="missing"):
         T.pool_state_from_numpy(
             {k: v for k, v in leaves.items() if k != "seq"}, "cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    # a resize-enabled state brings all seven resize fields (ROADMAP A11)
+    with pytest.raises(ValueError, match="missing"):
         T.pool_state_from_numpy({**leaves, "alloc": np.zeros(4)}, "cpu")
+    rz = J.init_pool(JPoolConfig(512.0, JPolicy.LRU, 4, resize_policy=1,
+                                 resize_min_mb=8.0))
+    got = T.pool_state_from_numpy(
+        {k: np.asarray(v) for k, v in rz._asdict().items()}, "cpu")
+    assert_state_equal(rz, got)
+    for name, dt in T.RESIZE_DTYPES.items():
+        assert getattr(got, name).dtype == dt
+        assert np.array_equal(np.asarray(getattr(rz, name)),
+                              getattr(got, name).numpy()), name
     # float64 leaves are cast to the reference's float32
     f64 = {**leaves, "size": leaves["size"].astype(np.float64)}
     assert T.pool_state_from_numpy(f64, "cpu").size.dtype == torch.float32

@@ -116,8 +116,27 @@ def test_warm_pool_matches_reference(policy, seed, ref):
 
 
 def test_resize_policy_raises_naming_a11():
-    with pytest.raises(NotImplementedError, match="A11"):
-        PoolConfig(100.0, Policy.LRU, 8, resize_policy=1)
+    """``PoolConfig(resize_policy=...)`` raised until vertical scaling was
+    ported (ROADMAP A11).  Now a ``fair_share`` pool admits a container
+    by shrinking an idle resident to its observed usage (36 of 60 MB for
+    function 6) where a pool without resize evicts it, and a hit on the
+    shrunken resident is a bottleneck event."""
+    stream = ((0.0, 6, 60.0), (5.0, 8, 64.0), (10.0, 6, 60.0))
+    rz = WarmPool(PoolConfig(100.0, Policy.LRU, 8,
+                             resize_policy="fair_share"))
+    plain = WarmPool(PoolConfig(100.0, Policy.LRU, 8))
+    got = {}
+    for name, pool in (("rz", rz), ("plain", plain)):
+        m = ClassMetrics()
+        got[name] = [pool.access(t, f, size, 1.0, 2.0, m)
+                     for t, f, size in stream]
+    assert got["rz"] == ["miss", "miss", "hit"]
+    assert got["plain"] == ["miss", "miss", "miss"]
+    six = next(c for c in rz.containers if c.func_id == 6)
+    assert (six.alloc_mb, six.used_mb, six.size_mb) == (36.0, 36.0, 60.0)
+    assert rz.free_mb == 0.0 and rz.occupancy_ok()
+    assert (rz.bneck, rz.acc_used, rz.acc_alloc) == (1, 36.0 + 49.0 + 36.0,
+                                                     60.0 + 64.0 + 36.0)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,6 @@ from repro_torch.core.pool import init_pool
 from repro_torch.core.types import DROP, MISS, Policy, PoolConfig
 from repro_torch.core.types import Trace as PortTrace
 from repro_torch.kernels.pool_step import evict_place_cuda
-from repro_torch.sim.scenario import NOT_PORTED
 from repro_torch.workloads import edge_trace, quickstart_trace
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -194,9 +193,10 @@ def test_golden_digests_are_the_references(ref):
 
 def test_imports_without_jax_or_repro():
     """With ``jax`` unimportable, the port imports, runs tiny fused
-    static, failure-injected and autoscaled simulates and one with
-    telemetry and chains on the CPU, writes its manifest, and never
-    loads a ``repro`` module."""
+    static, failure-injected and autoscaled simulates, one with
+    telemetry and chains and one with resize on the stored replay trace
+    on the CPU, writes its manifest, and never loads a ``repro``
+    module."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None          # any import of jax now fails
@@ -229,6 +229,13 @@ def test_imports_without_jax_or_repro():
                      ctr, mode="fused", chunk_events=30, device="cpu")
         assert c.timeline().counts.sum() == len(ctr)
         assert c.summary()["n_chains"] == c.chain_metrics().n_chains > 0
+        from repro_torch.sim import Resize
+        from repro_torch.workloads import benchmark_replay_trace
+        v = simulate(Scenario.cluster((512.0, 1024.0), max_slots=16,
+                                      resize=Resize("fair_share", 8.0)),
+                     benchmark_replay_trace().head(400), mode="fused",
+                     chunk_events=150, device="cpu")
+        assert v.summary()["utilization_ratio"] > 0
         m = c.manifest()
         assert "torch" in m["versions"] and "jax" not in m["versions"]
         with tempfile.TemporaryDirectory() as d:
@@ -273,9 +280,13 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch, qtrace):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("knob", sorted(NOT_PORTED))
+@pytest.mark.parametrize("knob", ["resize"])
 def test_unported_scenario_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[knob]):
+    """``resize`` was the last knob of the reference the port refused
+    (ROADMAP A11); every knob is ported now, so a value that is not one
+    raises the reference's ``ValueError`` naming the knob, and no
+    ``NotImplementedError``."""
+    with pytest.raises(ValueError, match=knob):
         T.Scenario.kiss(1024.0, **{knob: object()})
 
 
