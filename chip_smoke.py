@@ -12,8 +12,9 @@ Phases, each printing its own lines:
    ``nvcc`` each, all at once (timed, with ``ptxas``'s report);
 3. kernel B1 against its plain torch version on tie-heavy quantized
    batches (``-0.0`` and ``+0.0`` priorities among them) at the
-   simulator's shapes (the vertical phase's ``[8, 128]`` among them) and
-   a ragged one, bitwise on every output, then
+   simulator's shapes (the vertical phase's ``[8, 128]`` and the sweep
+   phase's ``[80, 1024]`` and ``[192, 256]`` among them) and a ragged
+   one, bitwise on every output, then
    timed per launch with CUDA events, and alone by the profiler, which
    must see its one kernel, ``evict_place_kernel``;
 4. kernels B3 (flash attention) and B2 (decode attention) against their
@@ -71,23 +72,35 @@ Phases, each printing its own lines:
    outcomes must not move; its overhead is printed), het16 autoscaled
    with windows, and the chain benchmark's scenarios
    (``chain_scenarios``, ``slack_aware`` and ``size_aware``) on its
-   stored trace in every mode, held to ``GOLDEN_TEL`` and
+   stored trace in ``gather`` and ``vmap`` (``slack_aware`` in ``fused``
+   in chunks; both in ``fused`` as chain-grid lanes), held to
+   ``GOLDEN_TEL`` and
    ``GOLDEN_CHAIN`` (every window array, every per-chain array, the
    summary; pinned by ``tests/test_torch_{telemetry,chains}.py``); then
    vertical scaling (``vertical_phase``): ``benchmarks/vertical.py``'s
    cluster and lanes on the quickstart trace (the hybrid in every mode,
-   monolithic and chunked; the unified ``fair_share`` lane, the
-   ``static`` resize lane and no resize; the hybrid with outages,
-   autoscaled and with telemetry) and the hybrid over the benchmark's
-   whole Azure replay trace (192,047 events, stored) in chunks of
-   ``RZ_REPLAY_CHUNK``, held to ``GOLDEN_RZ`` (node, outcome, the
-   summary with ``utilization_ratio`` and ``bottleneck_events``, the
-   three ``Result.vertical`` arrays, every window array; pinned by
-   ``tests/test_torch_vertical.py``), with the ``static`` lane equal to
-   no resize, bottleneck events in every ``fair_share`` run and resize's
-   overhead printed; then the device's busy share and device records an
-   event over two graph replays, for the static, the autoscaled and the
-   resize runner and for telemetry and chains on, with B1's kernel
+   monolithic and chunked; no resize; the hybrid with outages,
+   autoscaled and with telemetry; the unified ``fair_share`` lane and
+   the ``static`` resize lane as one sweep), held to ``GOLDEN_RZ``
+   (node, outcome, the summary with ``utilization_ratio`` and
+   ``bottleneck_events``, the three ``Result.vertical`` arrays, every
+   window array; pinned by ``tests/test_torch_vertical_pool.py``), with
+   the ``static`` lane equal to no resize, bottleneck events in every
+   ``fair_share`` run and resize's overhead printed; then sweeps
+   (``sweep_phase``): the repo's own grids through ``sweep``, each
+   group's lanes a tensor axis of one step and one block runner
+   (``edge_grid``: ``examples/kiss_edge_sim.py``'s 48 lanes;
+   ``routing_grid``: every routing on het16, whole trace and head;
+   ``chain_grid``: every routing x three SLO regimes with an outage,
+   monolithic and chunked; ``vertical_replay``: the unified and hybrid
+   resize lanes over the whole stored replay trace in chunks of
+   ``RZ_REPLAY_CHUNK``), every lane held to ``GOLDEN_SWEEP`` or
+   ``GOLDEN_RZ`` (pinned by ``tests/test_torch_sweep.py``), B1 once a
+   ``fused`` event of a group, with each sweep's and each group's
+   lane-events/s beside one ``simulate``'s events/s; then the device's
+   busy share and device records an event over two graph replays, for
+   the static, the autoscaled and the resize runner, for telemetry and
+   chains on and for sweeps of 1, 8 and 40 lanes, with B1's kernel
    records in ``fused`` seen at most once an event;
 7. the serving path at full width: the four models of
    ``launch.serve.default_registry(4)``, starcoder2-3b, rwkv6-7b,
@@ -108,8 +121,8 @@ Phases, each printing its own lines:
    and for zamba2-1.2b and rwkv6-7b a control that decodes the same
    tokens with the recurrent state zeroed before each step, which must
    miss;
-10. one JSON line of kernel measurements, one of path numbers, then
-   ``{"ok": true, ...}``.
+10. one line of seconds a phase and the total, one JSON line of kernel
+   measurements, one of path numbers, then ``{"ok": true, ...}``.
 
 Any mismatch or fault exits non-zero; no phase's failure is caught.
 """
@@ -461,6 +474,20 @@ GOLDEN_RZ = {
         vert_acc_used_mb="dfda2f3c85440e97a8600e3fbb5b7982d2cab59f96700eeb31e31b5e79b161b1",
         vert_acc_alloc_mb="e63792341a861a7cb9475b5553440dd132d69a999f0f135eef2eda3d0a3762d5",
         vert_bottlenecks="b12776b0bb151981578e6fd06a0df9cf052896d7c1568e78337d32eb4252221f"),
+    "vertical_dynamic_replay": dict(
+        node="e8a406e82e468257192a56313f0d650e5558eae76b574afba8f6fcdd5bd0ddd8",
+        outcome="c616506c31e87aa09f52c24e680590aa4615b920389a6425e26dae3c6358689e",
+        counts=[54440, 61593, 76014],
+        summary="21342eee33946a538c62ee5f5261ab47d0ed6038225e91c64167089bb8fce2eb",
+        n_windows=0,
+        n_chains=0,
+        deadline_miss_pct=0.0,
+        n_invalidated=0,
+        utilization_ratio=0.8059465394327183,
+        bottleneck_events=30131,
+        vert_acc_used_mb="6e05be51bd7dc32c0c69827f6d1820608ab7c9dc8bdfe26abbc3156b53cefc41",
+        vert_acc_alloc_mb="b01b9818c5ff40f790043e385d3a6e8191f04f054626aae3e32295e965d0c76b",
+        vert_bottlenecks="aba2617f6971875e87bccb5e6729de199416b5fa0c864a170254ecca62c32d07"),
 }
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core op/s,
@@ -469,8 +496,12 @@ HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 BF16_OPS_S = 989e12
 
-#: path (kiss4096), path (het16), ragged, the vertical phase's cluster
-KERNEL_SHAPES = ((2, 1024), (32, 256), (3, 1000), (8, 128))
+#: path (kiss4096), path (het16), ragged, the vertical phase's cluster,
+#: and the sweep phase's widest groups: the edge grid's 40 static lanes
+#: (80 rows of 1024 slots) and the routing grid's six het16 lanes (192
+#: rows of 256)
+KERNEL_SHAPES = ((2, 1024), (32, 256), (3, 1000), (8, 128), (80, 1024),
+                 (192, 256))
 #: The one ``__global__`` kernel each B1 launch runs.
 POOL_KERNELS = ["evict_place_kernel"]
 
@@ -1155,6 +1186,58 @@ def timed_run(what: str, spans, mode: str, fn):
     return res, dict(events=n, wall_s=dt, events_per_s=n / dt, **c)
 
 
+def timed_sweep(what: str, spans, mode: str, lanes: int, n_events: int,
+                fn):
+    """Run ``fn`` (one ``sweep`` of ``lanes`` lanes over ``n_events``
+    events; ``spans`` its groups' chunk or epoch lengths, one after
+    another), check the runner's counts (B1 once a ``fused`` event of
+    each group, whatever its lanes), print its lane-events/s and the
+    share of its wall spent capturing."""
+    counts = RunCounts()
+    t0 = time.perf_counter()
+    res = fn()
+    dt = time.perf_counter() - t0
+    c = counts.delta()
+    runner_check(what, c, spans, mode)
+    rate = lanes * n_events / dt
+    print(f"sweep {what}: {lanes} lanes x {n_events} events in {dt:.2f} s "
+          f"= {rate:.1f} lane-events/s ({c['blocks']} graph replays, "
+          f"{c['eager_events']} eager events, {c['b1_launches']} B1 "
+          f"launches, {c['captures']} captures = "
+          f"{100 * c['capture_s'] / dt:.1f}% of the wall)", flush=True)
+    return res, dict(lanes=lanes, events=n_events, wall_s=dt,
+                     lane_events_per_s=rate, **c)
+
+
+@contextlib.contextmanager
+def group_walls(records: list):
+    """Record each group a ``sweep`` runs into ``records``: its lanes,
+    events and host wall (a group's run ends by reading its results
+    back, so the wall holds the device's work) and its capture seconds."""
+    from repro_torch.cluster import graphs
+    from repro_torch.sim import api
+    real = {k: getattr(api, k) for k in ("_run_group",
+                                          "_run_group_autoscale")}
+
+    def timed(fn):
+        def run(configs, *args, **kw):
+            cap0, t0 = graphs.STATS["capture_s"], time.perf_counter()
+            out = fn(configs, *args, **kw)
+            records.append(dict(
+                lanes=len(configs), wall_s=time.perf_counter() - t0,
+                capture_s=graphs.STATS["capture_s"] - cap0,
+                n_nodes=configs[0].n_nodes))
+            return out
+        return run
+    for k, fn in real.items():
+        setattr(api, k, timed(fn))
+    try:
+        yield
+    finally:
+        for k, fn in real.items():
+            setattr(api, k, fn)
+
+
 def path_phase(dev, trace) -> dict:
     from repro_torch.cluster.graphs import BLOCK_EVENTS
     from repro_torch.sim import simulate
@@ -1448,7 +1531,8 @@ def telemetry_phase(dev, trace) -> dict:
     scenario without telemetry (its outcomes must not move; the
     overhead compares the two monolithic runs' walls without their
     capture); ``chain_scenarios`` over the chain benchmark's trace in
-    every mode, ``slack_aware`` in ``fused`` also in chunks of
+    ``gather`` and ``vmap`` (in ``fused`` they are lanes of the sweep
+    phase's chain grid), ``slack_aware`` in ``fused`` in chunks of
     ``CHAIN_CHUNK``; and het16 autoscaled with telemetry in ``fused``.
     Every run goes through the block runner (its counts and B1's are
     checked) and is held to ``GOLDEN_TEL``/``GOLDEN_CHAIN``."""
@@ -1505,8 +1589,8 @@ def telemetry_phase(dev, trace) -> dict:
             r_on["overhead"] = over
             print(f"  telemetry overhead, mode={mode}: {100 * over:.1f}% "
                   "of the run without it (walls less capture)", flush=True)
-        for name, scn in chains.items():
-            for mode in ("gather", "vmap", "fused"):
+        for name, scn in chains.items():      # fused: the chain grid's
+            for mode in ("gather", "vmap"):
                 held(name, f"chains/{name}/{mode}",
                      f"chains {name} mode={mode}", [nc], mode, scn, ctr,
                      GOLDEN_CHAIN)
@@ -1551,7 +1635,8 @@ def vertical_scenarios(trace, replay) -> dict:
     ``(scenario, trace)``: the four lanes on the quickstart ``trace``, the
     hybrid there with the failure phase's outages over the whole trace,
     autoscaled every ``ASC_EPOCH`` events and with windows of
-    ``TEL_WINDOW`` events, and the hybrid on the ``replay`` trace."""
+    ``TEL_WINDOW`` events, and the hybrid and the unified lane on the
+    ``replay`` trace."""
     from repro_torch.sim import Autoscale, Failures
     lanes = vertical_lanes()
     hyb, t_end = lanes["hybrid"], float(trace.t[-1])
@@ -1566,19 +1651,25 @@ def vertical_scenarios(trace, replay) -> dict:
             autoscale=Autoscale(epoch_events=ASC_EPOCH)), trace),
         hybrid_telemetry=(dataclasses.replace(
             hyb, name="hybrid_telemetry", telemetry=TEL_WINDOW), trace),
-        hybrid_replay=(hyb, replay))
+        hybrid_replay=(hyb, replay),
+        vertical_dynamic_replay=(lanes["vertical_dynamic"], replay))
     return out
 
 
-#: The vertical phase's runs, in order: ``(GOLDEN_RZ name, mode,
-#: chunk_events)``.
+#: The vertical phase's ``simulate`` runs, in order: ``(GOLDEN_RZ name,
+#: mode, chunk_events)``.
 VERTICAL_RUNS = (
     ("hybrid", "gather", None), ("hybrid", "vmap", None),
     ("hybrid", "fused", None), ("hybrid", "fused", CHUNK_EVENTS),
-    ("vertical_dynamic", "fused", None), ("kiss_rz_static", "fused", None),
     ("kiss_static", "fused", None), ("hybrid_failures", "fused", None),
-    ("hybrid_autoscale", "fused", None), ("hybrid_telemetry", "fused", None),
-    ("hybrid_replay", "fused", RZ_REPLAY_CHUNK))
+    ("hybrid_autoscale", "fused", None), ("hybrid_telemetry", "fused", None))
+#: The vertical runs made as sweeps: the phase's own ``fused`` sweep of
+#: the unified and the ``static`` resize lanes (one group: resize on, the
+#: hybrid's shape), and the sweep phase's ``vertical_replay`` (its lanes'
+#: ``GOLDEN_RZ`` names).
+VERTICAL_SWEEP = ("vertical_dynamic", "kiss_rz_static")
+REPLAY_LANES = {"vertical_dynamic": "vertical_dynamic_replay",
+                "hybrid": "hybrid_replay"}
 #: The ``Result.vertical`` arrays ``rz_digests`` holds.
 VERTICAL_ARRAYS = ("acc_used_mb", "acc_alloc_mb", "bottlenecks")
 #: The summary keys only vertical scaling may move.
@@ -1599,26 +1690,39 @@ def rz_digests(res) -> dict:
     return out
 
 
+def rz_check(what: str, res, name: str) -> dict:
+    """Hold a vertical run (or sweep lane) to ``GOLDEN_RZ[name]``, with a
+    finite summary and, under ``fair_share``, bottleneck events (the
+    shrink ran); returns the summary."""
+    got = rz_digests(res)
+    check(got == GOLDEN_RZ[name],
+          f"{what}: {got} != the JAX reference {GOLDEN_RZ[name]}")
+    s = res.summary()
+    check(all(np.isfinite(v) for v in s.values()),
+          f"{what}: non-finite summary value")
+    rz = res.scenario.resize
+    if rz is not None and rz.policy == "fair_share":
+        check(s["bottleneck_events"] > 0,
+              f"{what}: no bottleneck event, so no shrink ran")
+    return s
+
+
 def vertical_phase(dev, trace) -> dict:
     """Vertical scaling on the card, under ``set_sync_debug_mode("error")``,
     every count zeroed before and read after: ``VERTICAL_RUNS`` over
-    ``vertical_scenarios`` (the hybrid in every mode, monolithic and in
-    chunks of ``CHUNK_EVENTS``; the other lanes, the outages, the
-    autoscaler, telemetry and the whole replay trace in ``fused``).  Every
-    run goes through the block runner (its counts and B1's are checked)
-    and is held to ``GOLDEN_RZ``; the ``static`` resize lane's outcome
-    keys must equal no resize's (``benchmarks/vertical.py``'s
-    ``vertical_static_noop``), and every ``fair_share`` run must have
-    served bottleneck events (the shrink ran).  Prints each run's events/s
-    and resize's overhead: the hybrid against ``kiss_static`` in
-    ``fused``, walls less capture."""
-    from repro_torch.sim import simulate
-    from repro_torch.sim.api import trace_fingerprint
-    from repro_torch.workloads import benchmark_replay_trace
-    replay = benchmark_replay_trace()
-    check(trace_fingerprint(replay) == GOLDEN_REPLAY_TRACE,
-          "the stored replay trace differs from the one the reference ran")
-    scns = vertical_scenarios(trace, replay)
+    ``vertical_scenarios`` through ``simulate`` (the hybrid in every
+    mode, monolithic and in chunks of ``CHUNK_EVENTS``; no resize, the
+    outages, the autoscaler and telemetry in ``fused``), and the
+    ``VERTICAL_SWEEP`` lanes as one ``fused`` sweep (the whole replay
+    trace is the sweep phase's).  Every run goes through the block runner
+    (its counts and B1's are checked) and is held to ``GOLDEN_RZ``; the
+    ``static`` resize lane's outcome keys must equal no resize's
+    (``benchmarks/vertical.py``'s ``vertical_static_noop``), and every
+    ``fair_share`` run must have served bottleneck events (the shrink
+    ran).  Prints each run's events/s and resize's overhead: the hybrid
+    against ``kiss_static`` in ``fused``, walls less capture."""
+    from repro_torch.sim import simulate, sweep
+    scns = vertical_scenarios(trace, None)
     runs, summaries, fused = {}, {}, 0
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1637,16 +1741,18 @@ def vertical_phase(dev, trace) -> dict:
                 what, spans, mode,
                 lambda: simulate(scn, tr, mode=mode, device=dev,
                                  chunk_events=chunk))
-            got = rz_digests(res)
-            check(got == GOLDEN_RZ[name],
-                  f"{what}: {got} != the JAX reference {GOLDEN_RZ[name]}")
-            summaries[run] = s = res.summary()
-            check(all(np.isfinite(v) for v in s.values()),
-                  f"{what}: non-finite summary value")
-            if scn.resize is not None and scn.resize.policy == "fair_share":
-                check(s["bottleneck_events"] > 0,
-                      f"{what}: no bottleneck event, so no shrink ran")
+            summaries[run] = rz_check(what, res, name)
             fused += n if mode == "fused" else 0
+        n = len(trace)
+        what = f"vertical sweep {'+'.join(VERTICAL_SWEEP)} mode=fused"
+        lanes, runs["sweep/fused"] = timed_sweep(
+            what, [n], "fused", len(VERTICAL_SWEEP), n,
+            lambda: sweep(trace, [scns[k][0] for k in VERTICAL_SWEEP],
+                          mode="fused", device=dev))
+        for name, res in zip(VERTICAL_SWEEP, lanes):
+            summaries[f"{name}/fused"] = rz_check(f"{what} lane {name}",
+                                                  res, name)
+        fused += n
         counts = total.delta()                # ... and ends here
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -1674,6 +1780,389 @@ def vertical_phase(dev, trace) -> dict:
             "runs": runs, "overhead": over}
 
 
+#: The sweep phase (``sweep_phase``): the repo's own grids through
+#: ``repro_torch.sim.sweep``, at their users' sizes, on stored traces.
+#: ``edge_grid`` is ``examples/kiss_edge_sim.py``'s (the Fig 7/8/9 grid:
+#: ``EDGE_MEMS`` GB x ``EDGE_SPLITS`` KiSS lanes, a ``Scenario.baseline``
+#: lane and a ``Scenario.kiss`` lane autoscaled every ``ASC_EPOCH``
+#: events a memory size; 48 lanes, two groups, over the quickstart
+#: trace; the README quickstart's 8-lane sweep is part of it);
+#: ``routing_grid`` is ``benchmarks/continuum_bench.py``'s
+#: ``routing_comparison`` (``het16_cluster`` under every registered
+#: routing); ``chain_grid`` is ``benchmarks/chains.py``'s (every
+#: registered routing x ``CHAIN_REGIMES`` on two 2 GB nodes with
+#: ``CHAIN_OUTAGE``, over the stored chained trace), with windows of
+#: ``CHAIN_WINDOW`` events; ``vertical_replay`` is
+#: ``benchmarks/vertical.py``'s resize lanes ``vertical_dynamic`` and
+#: ``hybrid`` over the stored replay trace in chunks of
+#: ``RZ_REPLAY_CHUNK``.  ``GOLDEN_SWEEP`` holds, for every lane, its
+#: outcome counts and the blake2s of ``sweep_digests`` (node, outcome,
+#: the whole summary, every window, per-chain and vertical array and the
+#: epoch, membership and failure arrays) of the JAX reference's
+#: ``repro.sim.sweep`` of the same grid (``gather``; the routing grid
+#: also over its ``SIM_EVENTS`` head), pinned by
+#: ``tests/test_torch_sweep.py``.
+GB = 1024.0
+EDGE_MEMS = (2, 3, 4, 6, 8, 10, 12, 16)
+EDGE_SPLITS = (0.9, 0.8, 0.7, 0.5)
+CHAIN_REGIMES = (("none", None), ("tight", 4.0), ("loose", 8.0))
+GOLDEN_SWEEP = {
+    "edge_grid": {
+        "kiss_2g_0.9": ([2755, 6622, 1838],
+            "1a3a317e88930026e2f0646cbffd41af4ba2ca2e934f4893ebff4f8a95b8e0bd"),
+        "kiss_2g_0.8": ([2256, 7299, 1660],
+            "2c2a4999d66712c6b78fcb209abb864bb35a408df52e300d495c3783efce79fc"),
+        "kiss_2g_0.7": ([1660, 7878, 1677],
+            "e57e005679ceeced60b29a2e5cf6931d2c890381859ca8d43e9613ff19a54d5c"),
+        "kiss_2g_0.5": ([773, 8290, 2152],
+            "f10d88048d8ed41f6c4a2dc0438357bd5415602612b56f0079d94601605f294f"),
+        "kiss_3g_0.9": ([5231, 4146, 1838],
+            "2e1d97e3899938b483179e10c665d9e6453ae1def162c068c6b869bea7df48fc"),
+        "kiss_3g_0.8": ([4494, 5061, 1660],
+            "baaf5051d8cfc22ed8d1841fa1f53e4eecf5cd833a08c2a2868c7abf61c59ce0"),
+        "kiss_3g_0.7": ([3811, 5960, 1444],
+            "ad4bb8295ba44a182d4a346984ff63ebbb9eb90db78ecb2109eb92f29051dd50"),
+        "kiss_3g_0.5": ([2298, 7822, 1095],
+            "1ef57a715fd179b6425ba4fa2e9d88f07f3a00bd3415b979c6def9537aa527ca"),
+        "kiss_4g_0.9": ([7659, 1896, 1660],
+            "295c45e80a41615e433debc5a88aee7f7e1ef1e5a6a0ca10c93e2187c9cc088e"),
+        "kiss_4g_0.8": ([6783, 2988, 1444],
+            "783e56b7a739fe249ed6fdf680a7cf1955ea9f68359c32b56e8ee41260f3deec"),
+        "kiss_4g_0.7": ([5842, 4089, 1284],
+            "f27b55ffabf3aaecdb4adf0fc6a4c4c430967033ee7c706271a3b81d7a1645d8"),
+        "kiss_4g_0.5": ([3831, 6445, 939],
+            "3af53fb43c37d309287f3ce46c47e297823e25a176725359efba154a20f35f92"),
+        "kiss_6g_0.9": ([9092, 463, 1660],
+            "120a167280586280ea0a0784c9f5b96a709d5bcf3b22e1bfdd3f02df36ab1fa7"),
+        "kiss_6g_0.8": ([9227, 704, 1284],
+            "6d3cdec4589600997ece91dca863952cd721e29f4ab3f86f4927b52383d9c862"),
+        "kiss_6g_0.7": ([9196, 1125, 894],
+            "e756fdbee1147c47199729f4870a2eb707119167291c0a5739b17ff94865dfab"),
+        "kiss_6g_0.5": ([7184, 3701, 330],
+            "f84ca0557d827e37dbd23e7ca91d5a6ee84d4980c757b92f12f6d3b6f497f5e4"),
+        "kiss_8g_0.9": ([9338, 433, 1444],
+            "a32f54279a156b9fff06bada4b931e71059ce89f3d4dea7912249016b43b3df9"),
+        "kiss_8g_0.8": ([9476, 624, 1115],
+            "d0cda5e9ccfce47404dd5a5aa63826348ed3bf3c0012247f65e727101925d656"),
+        "kiss_8g_0.7": ([9713, 783, 719],
+            "e42fa88654a883eac52c2632dab700b0d08c05b8ff7dc3aa57e07aed03b162e8"),
+        "kiss_8g_0.5": ([10159, 1056, 0],
+            "23d1c5998314ce91377624ab7d0439c03d718f64368e3547f56a670b37d94225"),
+        "kiss_10g_0.9": ([9387, 416, 1412],
+            "966211413a88376296193a3520ec81278d2ac268ded6d710de58a87fab676eda"),
+        "kiss_10g_0.8": ([9655, 621, 939],
+            "0fa4c86512a6472bdb9ea669bb0f1e42b0f9a83370fd050aae77633298fa47a6"),
+        "kiss_10g_0.7": ([10222, 663, 330],
+            "3e777af2c12f7309cc9839ff467c6808f9cf223f1e6f84f319c25c712a8025be"),
+        "kiss_10g_0.5": ([10781, 434, 0],
+            "701f6b6968f05385e000dab2ea2d72794fbe80a7760a08f01189e15a087014e9"),
+        "kiss_12g_0.9": ([9465, 466, 1284],
+            "dc69ed0892259c6ed39becde213dd5b67b621ce6ce7bbff095f2f0edb3bc7ce7"),
+        "kiss_12g_0.8": ([9852, 644, 719],
+            "d9f2dd58a067f8daf4831147cfc772345dc3b901a3806941354f3078b353a138"),
+        "kiss_12g_0.7": ([10926, 287, 2],
+            "26764a1abce95f759ae9c063b8ea063f94a3544f9bc08831bd52f33105995c5b"),
+        "kiss_12g_0.5": ([10881, 334, 0],
+            "a953a74ce516dba72885ffcadfde1e4ed2175d8d70c973ab13250252a3538463"),
+        "kiss_16g_0.9": ([9567, 533, 1115],
+            "416824c35aed45a341b96d2fb0473729c536e6ed681be0ba38c3b01691b9834e"),
+        "kiss_16g_0.8": ([10619, 487, 109],
+            "1989a8ece936f2c0e1bf4f1be753b0e5ea0bb13b9627ee3ed17864aac694fd4f"),
+        "kiss_16g_0.7": ([10983, 232, 0],
+            "da69621dbcf23dae36e8ecb51336c90f1d7e044c8ce83c5872c626117dd0db42"),
+        "kiss_16g_0.5": ([10975, 240, 0],
+            "15febccfa506e013edebdf1c21ba8052d9e5bc12f6e4f28e22b334dfc3fa628d"),
+        "baseline_2g": ([388, 7801, 3026],
+            "ac5441de214f679233f340140d93c0f49c89749b938f602423baa89578859932"),
+        "baseline_3g": ([640, 8279, 2296],
+            "0132dc2f7b7410b6be0053e657d83e505309a692e54e44e29683b2b4d86809bb"),
+        "baseline_4g": ([1096, 8619, 1500],
+            "568895b4b1a45d259ad3a4dd6e1841f92a044b30e5453512c088760f1ff1beb2"),
+        "baseline_6g": ([7398, 3817, 0],
+            "20129b8d14b7d74bf39623378d5bf1ad90a78d8841022d59bfe37191ce1dd833"),
+        "baseline_8g": ([10526, 689, 0],
+            "1f0c8c071214ac8c9352e3b12e634708cc5000676f43a54c327bf12525418004"),
+        "baseline_10g": ([10845, 370, 0],
+            "df54db3aeb96383f0e9f7de2058458bd36328b08754bc40d0a32943255802b35"),
+        "baseline_12g": ([10948, 267, 0],
+            "e145076a872d02ddb06f4a535837739027df8b760daba0e88ab657ee040b7eb7"),
+        "baseline_16g": ([10990, 225, 0],
+            "3ccf9be89b6d6ede74ab689d804ce3f4f1aa2a81a2847e7bac51f2bee7afa1ea"),
+        "adaptive_2g": ([2740, 6669, 1806],
+            "e32560fa1aa3cdf8351ceabc32d03dd48451a512247b05c2d2240c8d85260392"),
+        "adaptive_3g": ([5144, 4326, 1745],
+            "eb11ef659d7e10dc70612459d0507ba69c8ca2aa3f278e1474a3d77957a41454"),
+        "adaptive_4g": ([6707, 3130, 1378],
+            "9dd977dadb023375a6c15321ae636a0c008ebac4f8b7e15cb9068ace7e29fffe"),
+        "adaptive_6g": ([8566, 1935, 714],
+            "2014804ac94439835fbb2e827fb8d7bce05daaa3c571f493ca353343e28b580c"),
+        "adaptive_8g": ([10089, 800, 326],
+            "9545340d9e8309df13af0b8ac8a17c6c148d2dd52e1cc1291b5071f322ea17dd"),
+        "adaptive_10g": ([10472, 545, 198],
+            "1118476954c20779ed3556cbff7c514cc51653775b57c7f85f641454eaa4dee8"),
+        "adaptive_12g": ([10666, 412, 137],
+            "3aa6a412ae8a8c9efd1fc2899bae3b8c9494d191ad438c50f139e65b41612d29"),
+        "adaptive_16g": ([10731, 380, 104],
+            "fa123792f3ecf451bc4d11f0497211d4f49c4a7d942375cc4866fcf61e893372"),
+    },
+    "routing_grid": {
+        "sticky": ([10732, 218, 265],
+            "1ed311fc4ea515c7b6272e7366b4fb55bb908cf7e644715b66c8b712c8415c34"),
+        "least_loaded": ([8014, 1343, 1858],
+            "eaf9efb45ba2d86235a4871429e4e82818195d0b37617678ef27dfab026f4107"),
+        "size_aware": ([10920, 222, 73],
+            "bf0f482437097b715873d4de8b56fc90c6fe67523e8a72007358cef4ac32d6d8"),
+        "power_of_two": ([9516, 260, 1439],
+            "1025f038200e68bb9a34309ee715bd63eb4fc08b1bc6233ed94ddcfc7982658e"),
+        "cost_model": ([5386, 3390, 2439],
+            "9697a453c2abec64ae76a9f8e06b0836db7859691d8884298feee25dc1a02237"),
+        "slack_aware": ([10732, 218, 265],
+            "1ed311fc4ea515c7b6272e7366b4fb55bb908cf7e644715b66c8b712c8415c34"),
+    },
+    "routing_grid_head": {
+        "sticky": ([3714, 177, 109],
+            "cdbfb90807c15d16766844a5374517cf83cc59003cf48f7ea85a885773d11781"),
+        "least_loaded": ([2477, 802, 721],
+            "19497a13f3c20ba327896cd67a83562f6a324b7f0f6d39e8ca9d92ea816d1e94"),
+        "size_aware": ([3785, 180, 35],
+            "283dd7ac259ef974aa097f0a2b05430e76f0bc5f962837b3bde6be6f870b5508"),
+        "power_of_two": ([3229, 214, 557],
+            "32e18e7f1a739dc7f6c81a4bbced7135cac746aaea79b89be1bb69a9a506bcb8"),
+        "cost_model": ([2487, 830, 683],
+            "e4046e77d9347a8cd7e4cfabd0c691a0dd67d2c7dad85b5bbbc82f7f3c46dc7f"),
+        "slack_aware": ([3714, 177, 109],
+            "cdbfb90807c15d16766844a5374517cf83cc59003cf48f7ea85a885773d11781"),
+    },
+    "chain_grid": {
+        "sticky-none": ([1439, 5264, 373],
+            "3a736194eea75786630f7f8285966efbc223223afd605cf8e84e1f83e27c7276"),
+        "sticky-tight": ([1439, 5264, 373],
+            "cda1c13feef5ad2aa04ce88f61806b850cea067c7d17e8e9f66512955266f87c"),
+        "sticky-loose": ([1439, 5264, 373],
+            "49e8c401d877094d40c08210c5635219de3741d36dfee70fb40643a8166e3aa4"),
+        "least_loaded-none": ([587, 6049, 440],
+            "fb650a0471e96563a227404aef6da3bd75aa00f01530443c650a32febc99a5b6"),
+        "least_loaded-tight": ([587, 6049, 440],
+            "4d8794cb8ae8e80b68c4b54a954dc787a7e60fa72d38aaf5bf0b255611201177"),
+        "least_loaded-loose": ([587, 6049, 440],
+            "f2929a781293e9959a8ee244e3d3903fbb629e6793a3e3f0b0f35677d738d96e"),
+        "size_aware-none": ([1439, 5264, 373],
+            "3a736194eea75786630f7f8285966efbc223223afd605cf8e84e1f83e27c7276"),
+        "size_aware-tight": ([1439, 5264, 373],
+            "cda1c13feef5ad2aa04ce88f61806b850cea067c7d17e8e9f66512955266f87c"),
+        "size_aware-loose": ([1439, 5264, 373],
+            "49e8c401d877094d40c08210c5635219de3741d36dfee70fb40643a8166e3aa4"),
+        "power_of_two-none": ([1271, 4638, 1167],
+            "be17e8177bba9815416d6cf6bfe3eda812c7f887ded72dd3822c7af910e07c77"),
+        "power_of_two-tight": ([1271, 4638, 1167],
+            "11c5e1de0544a2dde5161fdf5ccad42dab31dd1a80be977f3a10abc45764703a"),
+        "power_of_two-loose": ([1271, 4638, 1167],
+            "4d9734b74d4071b5d8faefbfd10963830b894b357422b4dcba446ec0f901a2b9"),
+        "cost_model-none": ([287, 3064, 3725],
+            "e2a3ee950fa2c3c9ac2d7d74cfe71414a3d88de1e11f4b14d23641de4ef7ae0e"),
+        "cost_model-tight": ([287, 3064, 3725],
+            "761cab1b860edaf596f46acbc804123a3e63178b872587472ef3e9b5ef829cd8"),
+        "cost_model-loose": ([287, 3064, 3725],
+            "74025ecfa0c78b2aec1939286f85a0077ac9660217200f6ed45e2d7a6e0f8aa1"),
+        "slack_aware-none": ([1439, 5264, 373],
+            "3a736194eea75786630f7f8285966efbc223223afd605cf8e84e1f83e27c7276"),
+        "slack_aware-tight": ([1644, 3916, 1516],
+            "9f7f0e384fbd5fd7fbfa6b3ce8d3a061226ba799c7c0a29c5cb0bc22d1e03ee7"),
+        "slack_aware-loose": ([1524, 4624, 928],
+            "71f0e52004d6af81beeb2fea9002b9131db10746ef1ec457e7004d70946c675c"),
+    },
+}
+
+
+def edge_grid() -> dict:
+    """``examples/kiss_edge_sim.py``'s 48 lanes by name, in its order."""
+    from repro_torch.sim import Autoscale, Scenario
+    out = {f"kiss_{m}g_{f}": Scenario.kiss(m * GB, small_frac=f)
+           for m in EDGE_MEMS for f in EDGE_SPLITS}
+    out.update({f"baseline_{m}g": Scenario.baseline(m * GB)
+                for m in EDGE_MEMS})
+    out.update({f"adaptive_{m}g": Scenario.kiss(
+        m * GB, autoscale=Autoscale(epoch_events=ASC_EPOCH))
+        for m in EDGE_MEMS})
+    return out
+
+
+def routing_grid() -> dict:
+    """``routing_comparison``'s lanes: ``het16_cluster`` under each
+    registered routing, by its name."""
+    from repro_torch.cluster.presets import het16_cluster
+    from repro_torch.sim import Scenario, routing_policies
+    return {r: Scenario.from_cluster(het16_cluster(r), name=r)
+            for r in routing_policies()}
+
+
+def chain_grid() -> dict:
+    """``benchmarks/chains.py``'s ``chain_grid``: every registered
+    routing x ``CHAIN_REGIMES``, by ``routing-regime``, with windows of
+    ``CHAIN_WINDOW`` events."""
+    from repro_torch.sim import Chains, Scenario, routing_policies
+    return {f"{r}-{regime}": Scenario.cluster(
+        (2048.0, 2048.0), routing=r, max_slots=256,
+        chains=Chains(slack=slack), failures=CHAIN_OUTAGE,
+        telemetry=CHAIN_WINDOW, name=f"{r}-{regime}")
+        for r in routing_policies() for regime, slack in CHAIN_REGIMES}
+
+
+def vertical_replay_lanes() -> dict:
+    """``benchmarks/vertical.py``'s resize lanes, for the replay trace."""
+    lanes = vertical_lanes()
+    return {k: lanes[k] for k in ("vertical_dynamic", "hybrid")}
+
+
+def sweep_digests(res) -> dict:
+    """What ``GOLDEN_SWEEP`` holds of a lane (of either package's
+    ``Result``): ``rz_digests`` and digests of the epoch, membership and
+    failure arrays, where the lane has them."""
+    out = rz_digests(res)
+    for k in ("fracs", "active", "invalidated", "node_up"):
+        a = getattr(res, k)
+        if a is not None:
+            a = np.asarray(a)
+            out[k] = digest(a, a.dtype)
+    return out
+
+
+def sweep_golden(res) -> tuple:
+    """A lane's ``GOLDEN_SWEEP`` entry: its outcome counts and the
+    blake2s of its ``sweep_digests``' JSON."""
+    return (np.bincount(res.outcome, minlength=3).tolist(),
+            hashlib.blake2s(json.dumps(sweep_digests(res), sort_keys=True)
+                            .encode()).hexdigest())
+
+
+def sweep_phase(dev, trace, path_runs) -> dict:
+    """Sweeps on the card, under ``set_sync_debug_mode("error")``, every
+    count zeroed before and read after: ``edge_grid`` in ``fused`` over
+    the whole quickstart trace (40 static lanes, B1 at [80, 1024], and 8
+    autoscaled ones, [16, 1024]); ``routing_grid`` in ``fused`` over the
+    whole trace ([192, 256]) and in ``gather`` and ``vmap`` over its
+    ``SIM_EVENTS`` head; ``chain_grid`` (18 lanes with an outage, chains
+    and per-lane deadlines, windows of ``CHAIN_WINDOW``) in ``fused``,
+    monolithic and in chunks of ``CHAIN_CHUNK``; and ``vertical_replay``
+    over the whole replay trace in chunks of ``RZ_REPLAY_CHUNK``.  Every
+    group goes through the block runner with its lanes as a tensor axis
+    (its counts and B1's are checked: one launch a ``fused`` event of a
+    group) and every lane is held to ``GOLDEN_SWEEP`` (the replay's to
+    ``GOLDEN_RZ``); the edge grid's kiss4096 lane and the routing grid's
+    ``size_aware`` lane to ``GOLDEN_FULL``, its head lane to ``GOLDEN``,
+    and the chain grid's tight ``slack_aware``/``size_aware`` lanes to
+    ``GOLDEN_CHAIN``.  Prints each sweep's lane-events/s, each group's,
+    and beside them the path phase's single kiss4096 run (whole trace,
+    ``fused``): the ratio is the batching factor."""
+    from repro_torch.sim import sweep, trace_fingerprint
+    from repro_torch.workloads import (benchmark_chained_trace,
+                                       benchmark_replay_trace)
+    ctr, replay = benchmark_chained_trace(), benchmark_replay_trace()
+    check(trace_fingerprint(replay) == GOLDEN_REPLAY_TRACE,
+          "the stored replay trace differs from the one the reference ran")
+    check(trace_fingerprint(ctr) == GOLDEN_CHAINED_TRACE,
+          "the stored chained trace differs from the one the reference ran")
+    head = trace.head(SIM_EVENTS)
+    n, nc = len(trace), len(ctr)
+    grids = {"edge_grid": edge_grid(), "routing_grid": routing_grid(),
+             "chain_grid": chain_grid()}
+    runs, groups, lanes_of, fused = {}, {}, {}, 0
+
+    def held(run, grid, tr, spans, mode, golden, chunk=None):
+        nonlocal fused
+        scns = grids[grid]
+        groups[run] = []
+        with group_walls(groups[run]):
+            res, runs[run] = timed_sweep(
+                run, spans, mode, len(scns), len(tr),
+                lambda: sweep(tr, list(scns.values()), mode=mode,
+                              device=dev, chunk_events=chunk))
+        for rec in groups[run]:
+            rec["lane_events_per_s"] = rec["lanes"] * len(tr) / rec["wall_s"]
+            print(f"  group of {rec['lanes']} lanes x {rec['n_nodes']} "
+                  f"nodes: {rec['wall_s']:.2f} s = "
+                  f"{rec['lane_events_per_s']:.1f} lane-events/s "
+                  f"(capture {rec['capture_s']:.2f} s)", flush=True)
+        runs[run]["groups"] = groups[run]
+        for name, r in zip(scns, res):
+            got = sweep_golden(r)
+            want = tuple(GOLDEN_SWEEP[golden][name])
+            check(got == want, f"sweep {run} lane {name}: {got} != the JAX "
+                  f"reference {want} ({sweep_digests(r)})")
+            check(all(np.isfinite(v) for v in r.summary().values()),
+                  f"sweep {run} lane {name}: non-finite summary value")
+        fused += sum(spans) if mode == "fused" else 0
+        lanes_of[run] = dict(zip(scns, res))
+        return lanes_of[run]
+
+    def same(res, want, what):
+        got = dict(node=digest(res.node), outcome=digest(res.outcome),
+                   counts=np.bincount(res.outcome, minlength=3).tolist())
+        check(got == want, f"{what}: {got} != the JAX reference {want}")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        check(sync_guard_refuses(dev),
+              "sync debug mode did not refuse a host sync")
+        zero_counts()                       # the sweep path starts here
+        total = RunCounts()
+        edge = held("edge_grid/fused", "edge_grid", trace,
+                    [n] + spans_of(n, ASC_EPOCH), "fused", "edge_grid")
+        same(edge["kiss_4g_0.8"], GOLDEN_FULL["kiss4096"],
+             "edge_grid kiss_4g_0.8 (kiss4096)")
+        routing = held("routing_grid/fused", "routing_grid", trace, [n],
+                       "fused", "routing_grid")
+        same(routing["size_aware"], GOLDEN_FULL["het16_size_aware"],
+             "routing_grid size_aware")
+        for mode in ("gather", "vmap"):
+            heads = held(f"routing_grid/{mode}/head", "routing_grid", head,
+                         [len(head)], mode, "routing_grid_head")
+            same(heads["size_aware"], GOLDEN["het16_size_aware"],
+                 f"routing_grid size_aware {mode} head")
+        for run, chunk in (("chain_grid/fused", None),
+                           ("chain_grid/fused/chunked", CHAIN_CHUNK)):
+            chain = held(run, "chain_grid", ctr, spans_of(nc, chunk or nc),
+                         "fused", "chain_grid", chunk)
+            for r in ("slack_aware", "size_aware"):
+                got = tel_digests(chain[f"{r}-tight"])
+                check(got == GOLDEN_CHAIN[r],
+                      f"{run} {r}-tight: {got} != the JAX reference "
+                      f"{GOLDEN_CHAIN[r]}")
+        vlanes = vertical_replay_lanes()
+        nr = len(replay)
+        res, runs["vertical_replay/fused/chunked"] = timed_sweep(
+            "vertical_replay/fused/chunked",
+            spans_of(nr, RZ_REPLAY_CHUNK), "fused", len(vlanes), nr,
+            lambda: sweep(replay, list(vlanes.values()), mode="fused",
+                          device=dev, chunk_events=RZ_REPLAY_CHUNK))
+        for name, r in zip(vlanes, res):
+            rz_check(f"vertical_replay lane {name}", r, REPLAY_LANES[name])
+        fused += nr
+        counts = total.delta()                # ... and ends here
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(counts["b1_launches"] == fused,
+          f"sweeps launched B1 {counts['b1_launches']} times, want {fused}")
+    single = path_runs["kiss4096/fused/chunked"]["events_per_s"]
+    static = groups["edge_grid/fused"][0]
+    factor = static["lane_events_per_s"] / single
+    print(f"sweeps: every lane matches the JAX reference bitwise; B1 "
+          f"launched {counts['b1_launches']} times, once a fused event of "
+          f"each group; {counts['captures']} captures in "
+          f"{counts['capture_s']:.2f} s; the edge grid's {static['lanes']} "
+          f"static lanes {static['lane_events_per_s']:.1f} lane-events/s "
+          f"against one kiss4096 simulate's {single:.1f} events/s: "
+          f"batching factor {factor:.2f}", flush=True)
+    return {"launches": counts["b1_launches"], "counts": counts,
+            "runs": runs, "batching_factor": factor,
+            "single_events_per_s": single}
+
+
+#: The lane counts of the busy phase's sweep flavour: the edge grid's
+#: first L static lanes.
+BUSY_LANES = (1, 8, 40)
+
+
 def busy_phase(dev, trace) -> dict:
     """Device busy share and device records an event over two graph
     replays (the first ``2 * BLOCK_EVENTS`` events) of the kiss scenario,
@@ -1681,9 +2170,11 @@ def busy_phase(dev, trace) -> dict:
     ``ASC_EPOCH`` events, so the window holds no re-split: the per-event
     cost of the live mask and the pressure) and the resize one
     (``Resize("fair_share", RZ_MIN_MB)``: the shrink pass and the
-    accumulators an event), and of the ``slack_aware``
+    accumulators an event), of the ``slack_aware``
     chain scenario on the chain benchmark's trace (telemetry and chains
-    on, the runner with failures), each in ``gather`` and ``fused``:
+    on, the runner with failures), and of a sweep of the edge grid's
+    first L static lanes for each L of ``BUSY_LANES`` (one group, the
+    lanes a tensor axis), each in ``gather`` and ``fused``:
     summed device time of every kernel and copy the profiler
     saw over the host wall time of the run, and the count of those
     device records over the events.  The window is short because the
@@ -1695,28 +2186,37 @@ def busy_phase(dev, trace) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.cluster.graphs import BLOCK_EVENTS
-    from repro_torch.sim import Autoscale, Resize, simulate
+    from repro_torch.sim import Autoscale, Resize, simulate, sweep
     from repro_torch.workloads import benchmark_chained_trace
     n_events = 2 * BLOCK_EVENTS
     head, kiss = trace.head(n_events), scenarios()["kiss4096"]
-    flavours = {"static": (kiss, head), "autoscaled": (dataclasses.replace(
-        kiss, autoscale=Autoscale(epoch_events=ASC_EPOCH)), head),
-        "resize": (dataclasses.replace(
-            kiss, resize=Resize("fair_share", RZ_MIN_MB)), head),
-        "telemetry+chains": (chain_scenarios()["slack_aware"],
+
+    def one(scn):
+        return lambda tr, mode: simulate(scn, tr, mode=mode, device=dev)
+    flavours = {"static": (one(kiss), head), "autoscaled": (one(
+        dataclasses.replace(kiss, autoscale=Autoscale(
+            epoch_events=ASC_EPOCH))), head),
+        "resize": (one(dataclasses.replace(
+            kiss, resize=Resize("fair_share", RZ_MIN_MB))), head),
+        "telemetry+chains": (one(chain_scenarios()["slack_aware"]),
                              benchmark_chained_trace().head(n_events))}
+    static = list(edge_grid().values())[:len(EDGE_MEMS) * len(EDGE_SPLITS)]
+    for lanes in BUSY_LANES:
+        flavours[f"sweep L={lanes}"] = (
+            lambda tr, mode, scns=static[:lanes]: sweep(
+                tr, scns, mode=mode, device=dev), head)
     out = {}
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0.0)
-    for flavour, (scn, head) in flavours.items():
+    for flavour, (run, head) in flavours.items():
         for mode in ("gather", "fused"):
-            simulate(scn, head.head(50), mode=mode, device=dev)  # warm-up
+            run(head.head(50), mode)                           # warm-up
             for attempt in range(4):
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
-                    simulate(scn, head, mode=mode, device=dev)
+                    run(head, mode)
                     wall = time.perf_counter() - t0
                 events = prof.key_averages()
                 if any(dev_us(e) > 0 for e in events):
@@ -1743,6 +2243,16 @@ def busy_phase(dev, trace) -> dict:
                   "records; top device time: "
                   + "; ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.1f} ms"
                               for e in top), flush=True)
+    for mode in ("gather", "fused"):
+        rec = {lanes: out[f"sweep L={lanes}/{mode}"]
+               for lanes in BUSY_LANES}
+        base = rec[1]["device_records_per_event"]
+        for r in rec.values():
+            r["records_vs_one_lane"] = r["device_records_per_event"] / base
+        print(f"busy sweep {mode}: device records an event against one "
+              "lane's: " + ", ".join(
+                  f"L = {lanes} {r['records_vs_one_lane']:.3f}"
+                  for lanes, r in rec.items()), flush=True)
     return out
 
 
@@ -2212,26 +2722,40 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     t_start = time.perf_counter()
-    build_phase(_build)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+    phase("build", build_phase, _build)
     from repro_torch.cluster.graphs import BLOCK_EVENTS
     from repro_torch.workloads import quickstart_trace
     trace = quickstart_trace()
-    kernels = kernel_phase(dev)
-    attention = attention_phase(dev)
-    scans = scan_phase(dev)
-    path = path_phase(dev, trace)
-    failures = failure_phase(dev, trace)
-    autoscale = autoscale_phase(dev, trace)
-    telemetry = telemetry_phase(dev, trace)
-    vertical = vertical_phase(dev, trace)
-    busy = busy_phase(dev, trace)
-    serving = serving_phase(dev)
-    eviction = eviction_phase(dev, serving["sizes"])
-    logits = logits_phase(dev)
+    kernels = phase("kernel", kernel_phase, dev)
+    attention = phase("attention", attention_phase, dev)
+    scans = phase("scan", scan_phase, dev)
+    path = phase("path", path_phase, dev, trace)
+    failures = phase("failures", failure_phase, dev, trace)
+    autoscale = phase("autoscale", autoscale_phase, dev, trace)
+    telemetry = phase("telemetry", telemetry_phase, dev, trace)
+    vertical = phase("vertical", vertical_phase, dev, trace)
+    sweeps = phase("sweep", sweep_phase, dev, trace, path["runs"])
+    busy = phase("busy", busy_phase, dev, trace)
+    serving = phase("serving", serving_phase, dev)
+    eviction = phase("eviction", eviction_phase, dev, serving["sizes"])
+    logits = phase("logits", logits_phase, dev)
+    total_s = time.perf_counter() - t_start
+    print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                 seconds.items())
+          + f"; total {total_s:.1f} s", flush=True)
 
     main_row = kernels["rows"][0]            # [2, 1024]: Scenario.kiss
     b1_path = (path["launches"] + autoscale["launches"]
-               + telemetry["launches"] + vertical["launches"])
+               + telemetry["launches"] + vertical["launches"]
+               + sweeps["launches"])
     entries = [dict(name="pool_step.evict_place", route="cuda",
                     source="src/repro_torch/kernels/csrc/pool_step.cu",
                     replaces="src/repro/kernels/pool_step.py:43",
@@ -2241,6 +2765,7 @@ def main() -> int:
                         autoscale=autoscale["launches"],
                         telemetry_chains=telemetry["launches"],
                         vertical=vertical["launches"],
+                        sweep=sweeps["launches"],
                         failures=failures["launches"]),
                     cuda_kernels=POOL_KERNELS,
                     cuda_kernel_launches=b1_path,
@@ -2288,11 +2813,14 @@ def main() -> int:
                              "counts": telemetry["counts"]},
         "vertical": {"runs": vertical["runs"], "counts": vertical["counts"],
                      "overhead": vertical["overhead"]},
+        "sweep": {k: sweeps[k] for k in ("runs", "counts",
+                                         "batching_factor",
+                                         "single_events_per_s")},
         "device_busy_share": busy,
         "serving": {k: serving[k] for k in ("stats", "wall_s", "models",
                                             "peak_gb", "busy")},
         "eviction": eviction["rows"], "logits": logits,
-        "seconds": time.perf_counter() - t_start, "card": card}))
+        "phase_seconds": seconds, "seconds": total_s, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

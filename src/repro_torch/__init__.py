@@ -17,12 +17,14 @@ code it shares with the reference is copied, not imported.
 
 Ported so far:
 
-* ``simulate`` for static, failure-injected and autoscaled scenarios,
-  with telemetry, function chains and vertical scaling, monolithic or
-  chunked, in the ``"gather"``, ``"vmap"`` and ``"fused"`` step modes,
-  with the fused evict-and-place step written as a CUDA kernel
-  (``repro_torch.kernels.pool_step``) and, on the card, each block of
-  events replayed as one CUDA graph (``repro_torch.cluster.graphs``);
+* ``simulate`` and ``sweep`` for static, failure-injected and
+  autoscaled scenarios, with telemetry, function chains and vertical
+  scaling, monolithic or chunked, in the ``"gather"``, ``"vmap"`` and
+  ``"fused"`` step modes, with the fused evict-and-place step written as
+  a CUDA kernel (``repro_torch.kernels.pool_step``) and, on the card,
+  each block of events replayed as one CUDA graph
+  (``repro_torch.cluster.graphs``); a sweep's like-shaped lanes run as
+  one leading tensor axis of that step and of its graphs;
 * the dense serving path: ``serving.KissServer``/``UnifiedServer`` manage
   real model containers (``models``: the decoder-only transformer for
   the dense configs of ``configs``) in the paper's warm pools

@@ -7,14 +7,18 @@ pays the host's dispatch of every small op of an event (~100-200 of
 them); a CUDA graph records them once and replays them with no host
 work between kernels.
 
-A :class:`BlockRunner` owns fixed tensors: the carry (the stacked pool
-state and, with failures, the invalidation counts), the tensors the
-step reads (routing code, ``unified``, ``cloud``), ``[K]`` event input
-buffers (with the ``[K, N]`` up/recover rows), and ``[K]`` node and
-outcome output buffers.  Its block runs K events through the unchanged
-``engine._make_step`` from the input buffers into the output buffers
-and copies the final state back into the carry in place (``vmap`` and
-``fused`` rebind the pool state on every event).  Per block of a chunk,
+A :class:`BlockRunner` runs ``lanes`` lanes of a sweep group at once
+(one for a single run): every tensor but the events has a leading lane
+axis.  It owns fixed tensors: the carry (the stacked pool state
+``[L * 2N, S]`` and, with failures, the invalidation counts
+``[L, N]``), the tensors the step reads (routing codes ``[L]``,
+``unified`` ``[L, N]``, ``cloud`` ``[L, 2]``), ``[K]`` event input
+buffers, which every lane shares (with the ``[K, L, N]`` up/recover
+rows), and ``[K, L]`` node and outcome output buffers.  Its block runs
+K events through the unchanged ``engine._make_step`` from the input
+buffers into the output buffers and copies the final state back into
+the carry in place (``vmap`` and ``fused`` rebind the pool state on
+every event).  Per block of a chunk,
 the runner copies the block's events device to device into the input
 buffers, replays the graph and copies the outputs out, all on the
 current stream, with no host sync; the chunk's last ``c mod K`` events
@@ -23,9 +27,9 @@ block runs eagerly: the same code, only the capture differs, so the CPU
 tests cover the block partition and the carry.
 
 The autoscaled flavour (``autoscaled=True``, for the engine's epoch
-loop) adds the membership ``active`` bool[N], which every event reads
+loop) adds the membership ``active`` bool[L, N], which every event reads
 as its live mask (``up & active`` with failures), and the epoch's
-pressure ``press`` f32[N, 2] and ``dropw`` f32[1], which every event
+pressure ``press`` f32[L, N, 2] and ``dropw`` f32[L], which every event
 adds to; its invalidation counts also take retirements.  Between epochs
 the engine zeroes the pressure in place and, after the re-split, writes
 the resized pools, the membership and the retirement's count back into
@@ -33,19 +37,20 @@ the same storage (:meth:`BlockRunner.commit`), so the next replay reads
 them.
 
 With telemetry on (``tel=True``) the block also writes, for each of
-its K events, the state after it into fixed ``[K, N]`` rows (free MB
-and residents per node) and, with failures, the residents the event's
-recovery invalidated into a ``[K]`` row; after each replay the runner
-copies the rows of the events that end a window into the run's
-:class:`~repro_torch.cluster.engine.TelSink` (positions the host knows
-from global event indices), so no ``[W, ...]`` window tensor, whose
+its K events, the state after it into fixed ``[K, L, N]`` rows (free
+MB and residents per node) and, with failures, the residents the
+event's recovery invalidated into a ``[K, L]`` row; after each replay
+the runner copies the rows of the events that end a window into the
+run's :class:`~repro_torch.cluster.engine.TelSink` (positions the host
+knows from global event indices), so no ``[W, ...]`` window tensor, whose
 shape is the run's, is in the graph.  With chains on (``chains=C``) the
 chain state the step reads before it routes (each chain's latency so
-far, drop flag and deadline) lives in fixed tensors of a capacity that
-rounds ``C`` up to a power of two (at least :data:`MIN_CHAIN_CAP`), so
-a trace with about as many chains replays the same graph; the block
-reads each event's chain row, stage, final-stage flag and cloud cold
-flip from ``[K]`` input buffers and writes its miss flag into a ``[K]``
+far, drop flag and deadline, ``[L, cap]``) lives in fixed tensors of a
+capacity that rounds ``C`` up to a power of two (at least
+:data:`MIN_CHAIN_CAP`), so a trace with about as many chains replays the
+same graph; the block reads each event's chain column, stage and
+final-stage flag from ``[K]`` input buffers and each lane's cloud cold
+flip from a ``[K, L]`` one, and writes the miss flags into a ``[K, L]``
 output buffer.
 
 With vertical scaling on (``resize=True``) the carry's pool state holds
@@ -72,8 +77,8 @@ from ..core.continuum import ClusterConfig
 from ..core.pool import get_step_backend
 from ..core.registry import REPLACEMENT, RESIZE, ROUTING
 from .engine import (ChainAcc, ChainXs, ClusterEvent, EventOut, Pressure,
-                     _each, _make_step, _run_events, _snapshot,
-                     init_cluster)
+                     _each, _make_step, _run_events, _run_inputs,
+                     _snapshot)
 
 #: Events one graph replay steps.  Replay time per event barely depends
 #: on it (the device runs the same kernels; a block's copies and launch
@@ -122,53 +127,57 @@ class BlockRunner:
     def __init__(self, device: torch.device, n_nodes: int, max_slots: int,
                  mode: str, failing: bool, block: int,
                  autoscaled: bool = False, tel: bool = False,
-                 chain_cap: int = 0, resize: bool = False):
+                 chain_cap: int = 0, resize: bool = False, lanes: int = 1):
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
-        n, k, dev = n_nodes, block, device
+        if lanes < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes}")
+        n, k, dev, ln = n_nodes, block, device, lanes
         self.device, self.n_nodes, self.block = dev, n, k
+        self.lanes = ln
         self.failing, self.autoscaled = failing, autoscaled
         self.tel, self.chain_cap = tel, chain_cap
-        self.routing = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.unified = torch.zeros(n, dtype=torch.bool, device=dev)
-        self.cloud = torch.zeros(2, dtype=torch.float32, device=dev)
-        self.pools = init_cluster(ClusterConfig(
-            node_mb=(1.0,) * n, small_frac=(0.5,) * n, unified=(False,) * n,
-            max_slots=max_slots, resize_policy=0 if resize else None), dev)
-        self.inval = torch.zeros(n, dtype=torch.int32, device=dev)
-        self.active = torch.ones(n, dtype=torch.bool, device=dev)
-        self.press = torch.zeros((n, 2), dtype=torch.float32, device=dev)
-        self.dropw = torch.zeros(1, dtype=torch.float32, device=dev)
+        self.pools, self.routing, self.unified, self.cloud = _run_inputs(
+            [ClusterConfig(node_mb=(1.0,) * n, small_frac=(0.5,) * n,
+                           unified=(False,) * n, max_slots=max_slots,
+                           resize_policy=0 if resize else None)] * ln, dev)
+        self.inval = torch.zeros((ln, n), dtype=torch.int32, device=dev)
+        self.active = torch.ones((ln, n), dtype=torch.bool, device=dev)
+        self.press = torch.zeros((ln, n, 2), dtype=torch.float32, device=dev)
+        self.dropw = torch.zeros(ln, dtype=torch.float32, device=dev)
         f32, i32 = torch.float32, torch.int32
         self.events = ClusterEvent(*(
             torch.zeros(k, dtype=dt, device=dev)
             for dt in (f32, i32, f32, i32, f32, f32, i32, i32)),
             used=torch.zeros(k, dtype=f32, device=dev) if resize else None)
-        self.up = torch.ones((k, n), dtype=torch.bool, device=dev)
-        self.recover = torch.zeros((k, n), dtype=torch.bool, device=dev)
-        self.node = torch.zeros(k, dtype=i32, device=dev)
-        self.outcome = torch.zeros(k, dtype=i32, device=dev)
+        self.up = torch.ones((k, ln, n), dtype=torch.bool, device=dev)
+        self.recover = torch.zeros((k, ln, n), dtype=torch.bool, device=dev)
+        self.node = torch.zeros((k, ln), dtype=i32, device=dev)
+        self.outcome = torch.zeros((k, ln), dtype=i32, device=dev)
         # telemetry rows: the state after each event of the block
         self.snap_free = self.snap_occ = self.sink = None
         if tel:
-            self.snap_free = torch.zeros((k, n), dtype=f32, device=dev)
-            self.snap_occ = torch.zeros((k, n), dtype=i32, device=dev)
+            self.snap_free = torch.zeros((k, ln, n), dtype=f32, device=dev)
+            self.snap_occ = torch.zeros((k, ln, n), dtype=i32, device=dev)
         # chains: the per-chain state and the per-event chain data
         self.chain = self.cx = None
         if chain_cap:
             self.chain = ChainAcc(
-                lat=torch.zeros(chain_cap, dtype=f32, device=dev),
-                dropped=torch.zeros(chain_cap, dtype=torch.bool, device=dev),
-                deadline=torch.full((chain_cap,), float("inf"), dtype=f32,
+                lat=torch.zeros((ln, chain_cap), dtype=f32, device=dev),
+                dropped=torch.zeros((ln, chain_cap), dtype=torch.bool,
                                     device=dev),
-                rtt=self.cloud[0])
-            self.cx = ChainXs(*(torch.zeros(k, dtype=dt, device=dev)
-                                for dt in (torch.int64, i32, torch.bool,
-                                           torch.bool)))
+                deadline=torch.full((ln, chain_cap), float("inf"),
+                                    dtype=f32, device=dev),
+                rtt=self.cloud[:, 0])
+            self.cx = ChainXs(*(torch.zeros(shape, dtype=dt, device=dev)
+                                for shape, dt in ((k, torch.int64), (k, i32),
+                                                  (k, torch.bool),
+                                                  ((k, ln), torch.bool))))
         self.out = EventOut(
-            torch.zeros(k, dtype=i32, device=dev) if tel and failing
+            torch.zeros((k, ln), dtype=i32, device=dev) if tel and failing
             else None,
-            torch.zeros(k, dtype=i32, device=dev) if chain_cap else None,
+            torch.zeros((k, ln), dtype=i32, device=dev) if chain_cap
+            else None,
             self._snap_row if tel else None)
         self.step = _make_step(self.routing, self.unified, self.cloud, n,
                                mode)
@@ -178,7 +187,7 @@ class BlockRunner:
             self._capture()
 
     def _snap_row(self, i: int, pools) -> None:
-        _snapshot(pools, self.n_nodes, self.snap_free[i], self.snap_occ[i])
+        _snapshot(pools, self.snap_free[i], self.snap_occ[i])
 
     def _advance(self, events, up, recover, node, outcome, count: int,
                  cx=None, out=None):
@@ -192,7 +201,7 @@ class BlockRunner:
                if self.autoscaled else None)
         pools, inval = _run_events(
             self.step, self.pools, self.inval, events, up, recover, node,
-            outcome, self.n_nodes, count, acc,
+            outcome, count, acc,
             None if cx is None else (self.chain, cx), out)
         self._store(pools, inval)
 
@@ -235,9 +244,12 @@ class BlockRunner:
     def load(self, pools, routing, unified, cloud, active=None,
              deadline=None, sink=None) -> None:
         """Copy a run's initial state and inputs into the fixed tensors:
-        an autoscaled run also gives its starting membership, a run with
-        chains its deadlines f32[C] (its chain rows start at zero), and a
-        run with telemetry its :class:`~repro_torch.cluster.engine.TelSink`."""
+        the lanes' pools, routing codes, ``unified`` and ``cloud``
+        (:func:`~repro_torch.cluster.engine._run_inputs`); an autoscaled
+        run also gives its starting membership bool[L, N], a run with
+        chains its deadlines f32[L, C] (its chain state starts at zero),
+        and a run with telemetry its
+        :class:`~repro_torch.cluster.engine.TelSink`."""
         for a, b in zip(self.pools, pools):
             if a is not None:
                 a.copy_(b)
@@ -248,13 +260,13 @@ class BlockRunner:
         if self.autoscaled:
             self.active.copy_(active)
         if self.chain is not None:
-            c = deadline.shape[0]
+            c = deadline.shape[-1]
             if c > self.chain_cap:
                 raise ValueError(f"{c} chains exceed the runner's "
                                  f"capacity of {self.chain_cap}")
             self.chain.lat.zero_()
             self.chain.dropped.zero_()
-            self.chain.deadline[:c].copy_(deadline)
+            self.chain.deadline[:, :c].copy_(deadline)
         self.sink = sink
 
     def commit(self, pools, active, cnt) -> None:
@@ -284,11 +296,11 @@ class BlockRunner:
     def run_chunk(self, events: ClusterEvent, up, recover,
                   node: torch.Tensor, outcome: torch.Tensor, base: int = 0,
                   cx: ChainXs | None = None, inval=None, miss=None) -> None:
-        """Step one uploaded chunk (``[c]`` events; ``[c, N]`` masks with
-        failures; ``cx`` its chain data with chains) from the carry,
-        writing ``node``/``outcome`` i32[c] and, when given, the
+        """Step one uploaded chunk (``[c]`` events; ``[c, L, N]`` masks
+        with failures; ``cx`` its chain data with chains) from the carry,
+        writing ``node``/``outcome`` i32[c, L] and, when given, the
         per-event recovery invalidations ``inval`` and chain misses
-        ``miss`` i32[c].  ``base`` is the global index of the chunk's
+        ``miss`` i32[c, L].  ``base`` is the global index of the chunk's
         first event (telemetry's windows)."""
         c, k = node.shape[0], self.block
         full = c - c % k
@@ -325,20 +337,23 @@ class BlockRunner:
 
 @functools.lru_cache(maxsize=CACHE_SIZE)
 def _cached(device, n_nodes, max_slots, mode, failing, block, autoscaled,
-            tel, chain_cap, resize, routing_specs, replacement_specs,
+            tel, chain_cap, resize, lanes, routing_specs, replacement_specs,
             resize_specs) -> BlockRunner:
     return BlockRunner(device, n_nodes, max_slots, mode, failing, block,
-                       autoscaled, tel, chain_cap, resize)
+                       autoscaled, tel, chain_cap, resize, lanes)
 
 
 def block_runner(device, n_nodes: int, max_slots: int, mode: str,
                  failing: bool, block: int | None = None,
                  autoscaled: bool = False, tel: bool = False,
-                 chains: int = 0, resize: bool = False) -> BlockRunner:
-    """The cached runner for this cluster shape and step mode.
+                 chains: int = 0, resize: bool = False,
+                 lanes: int = 1) -> BlockRunner:
+    """The cached runner for this cluster shape, step mode and lane
+    count.
 
     The key holds every Python value the captured step closes over: the
-    device, ``n_nodes`` and ``max_slots`` (the shapes), ``mode`` (which
+    device, ``n_nodes``, ``max_slots`` and ``lanes`` (the shapes),
+    ``mode`` (which
     names the step backend), whether failures are on, the block length,
     whether the run is autoscaled (the live mask and the pressure),
     whether telemetry is on (the snapshot rows), the chain capacity
@@ -348,10 +363,11 @@ def block_runner(device, n_nodes: int, max_slots: int, mode: str,
     and resize policies (the step runs every registered routing body and
     ``where``-chains every replacement priority and, with resize on,
     every resize body, so registering a policy makes a new entry).
-    Everything else a run differs in (routing code, ``unified``,
-    ``cloud``, capacities, policy codes, the resize code and floor,
-    membership, deadlines, the window length and the trace's length) is
-    data in the runner's fixed tensors or on the host."""
+    Everything else a run or a lane differs in (routing code,
+    ``unified``, ``cloud``, capacities, policy codes, the resize code and
+    floor, membership, the autoscaler's parameters, failure masks,
+    deadlines, the window length and the trace's length) is data in the
+    runner's fixed tensors or on the host."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -360,5 +376,6 @@ def block_runner(device, n_nodes: int, max_slots: int, mode: str,
     return _cached(device, n_nodes, max_slots, mode, bool(failing),
                    BLOCK_EVENTS if block is None else int(block),
                    bool(autoscaled), bool(tel), chain_capacity(chains),
-                   bool(resize), ROUTING.specs(), REPLACEMENT.specs(),
+                   bool(resize), int(lanes), ROUTING.specs(),
+                   REPLACEMENT.specs(),
                    RESIZE.specs() if resize else ())

@@ -221,6 +221,15 @@ class ClusterConfig:
     def n_nodes(self) -> int:
         return len(self.node_mb)
 
+    @classmethod
+    def homogeneous(cls, n_nodes: int, node_mb: float, *, kiss: bool = True,
+                    small_frac: float = 0.8, **kw) -> "ClusterConfig":
+        """``n_nodes`` identical nodes of ``node_mb``: KiSS-split at
+        ``small_frac`` (``kiss=True``) or unified."""
+        return cls(node_mb=(float(node_mb),) * n_nodes,
+                   small_frac=(float(small_frac),) * n_nodes,
+                   unified=(not kiss,) * n_nodes, **kw)
+
     def pool_caps(self) -> np.ndarray:
         """f64[N, 2] per-node (small, large) pool capacities in MB,
         rounded through float32 as the reference rounds them."""

@@ -101,6 +101,7 @@ class PolicyRegistry:
         self.kind = kind
         self._specs: list[PolicySpec] = []
         self._by_name: dict[str, PolicySpec] = {}
+        self._hooks: list[Callable[[], None]] = []
 
     def register(self, name: str, *, needs_free: bool = True):
         """Decorator: register ``fn(xp, ctx_or_stats)`` under ``name``.
@@ -119,9 +120,18 @@ class PolicyRegistry:
                               needs_free=needs_free)
             self._specs.append(spec)
             self._by_name[name] = spec
+            for hook in self._hooks:
+                hook()
             return fn
 
         return deco
+
+    def on_register(self, hook: Callable[[], None]) -> None:
+        """Run ``hook()`` after every later registration.  The port's
+        engine needs none: the block runner's cache keys on the
+        registered specs."""
+        if hook not in self._hooks:
+            self._hooks.append(hook)
 
     def resolve(self, policy) -> int:
         """Name | code | IntEnum member -> registered integer code."""

@@ -13,8 +13,28 @@ spelling, so the bodies are the reference's own text:
 * ``xp.maximum``/``xp.minimum`` take a Python number on either side,
   and ``xp.clip`` is ``minimum(maximum(a, lo), hi)``, as numpy's;
 * ctx arrays are :class:`XTensor`, which adds ``.astype`` and reads
-  ``a[i]`` at a 0-d index tensor with ``index_select``, so that reading
-  one node's entry never copies the index to the host.
+  ``a[i]`` at an index tensor with ``index_select``/``gather``, so that
+  reading one node's entry never copies the index to the host.
+
+The lane spelling.  A sweep routes all of its lanes in one pass over the
+same bodies: the per-node ctx arrays are then ``[L, N]`` XTensors (one
+row a lane), and every operation a body applies to a whole array acts on
+the last axis, lane by lane:
+
+* a reduction with no ``axis`` (``xp.sum``, ``xp.argmax``,
+  ``xp.argmin``) reduces the last axis and keeps it as size 1, so a
+  lane's answer ``[L, 1]`` broadcasts against ``[L, N]`` as a scalar
+  does against ``[N]``; ``xp.argmax``/``xp.argmin`` keep the first-index
+  tie rule;
+* ``xp.cumsum`` runs along the last axis;
+* ``a[i]`` with a 0-d or ``[L, 1]`` integer index gathers along the last
+  axis (a 0-d index, an event's scalar, is the same entry in every lane);
+* per-lane scalars come in as ``[L, 1]`` and the event's scalars stay
+  0-d (the lanes share the trace).
+
+A 1-D XTensor is the one-lane case without the lane axis: there the
+rules read as numpy's (a reduction gives a 0-d tensor, ``a[i]`` a 0-d
+entry).  A plain tensor keeps numpy's whole-array semantics.
 """
 from __future__ import annotations
 
@@ -60,10 +80,13 @@ class XTensor(torch.Tensor):
         return self.to(_dtype(dtype))
 
     def __getitem__(self, idx):
-        if (isinstance(idx, torch.Tensor) and idx.ndim == 0
+        if (isinstance(idx, torch.Tensor) and not idx.is_floating_point()
                 and idx.dtype != torch.bool):
-            return self.index_select(0, idx.reshape(1)).reshape(
-                self.shape[1:])
+            if idx.ndim == 0:
+                out = self.index_select(-1, idx.reshape(1))
+                return out.reshape(()) if self.ndim == 1 else out
+            if idx.ndim == self.ndim:       # [L, 1] index into [L, N]
+                return self.gather(-1, idx.to(torch.int64))
         return super().__getitem__(idx)
 
 
@@ -108,22 +131,39 @@ def mod(a, b):
     return torch.remainder(a, b)
 
 
-# Reductions, as the policy bodies use them: over the whole array, or
-# along one axis (the resize bodies' ``axis=-1, keepdims=True``).
+# Reductions, as the policy bodies use them: over the whole array (of an
+# XTensor: its last axis, lane by lane), or along one axis (the resize
+# bodies' ``axis=-1, keepdims=True``).
+
+def _lanes(x) -> bool:
+    """Whether ``x`` reduces lane by lane (an XTensor)."""
+    return isinstance(x, XTensor)
+
 
 def sum(x, axis=None, keepdims=False):  # noqa: A001 (numpy's name)
     if axis is None:
+        if _lanes(x):
+            return torch.sum(x, -1, keepdim=x.ndim > 1)
         return torch.sum(x)
     return torch.sum(x, dim=axis, keepdim=keepdims)
 
 
 def cumsum(x):
+    if _lanes(x):
+        return torch.cumsum(x, -1)
     return torch.cumsum(x.reshape(-1), 0)
 
 
+def _arg(fn, x):
+    x = x.to(torch.uint8) if x.dtype == torch.bool else x
+    if _lanes(x):
+        return fn(x, -1, keepdim=x.ndim > 1)
+    return fn(x)
+
+
 def argmax(x):
-    return torch.argmax(x.to(torch.uint8) if x.dtype == torch.bool else x)
+    return _arg(torch.argmax, x)
 
 
 def argmin(x):
-    return torch.argmin(x.to(torch.uint8) if x.dtype == torch.bool else x)
+    return _arg(torch.argmin, x)

@@ -1,13 +1,14 @@
 """repro_torch.sim — the front door of the port: one Scenario, the
 policy registries, one Result::
 
-    from repro_torch.sim import Scenario, simulate
+    from repro_torch.sim import Scenario, simulate, sweep
     from repro_torch.workloads import edge_trace
 
     trace = edge_trace(seed=0, duration_s=3600)
     kiss = simulate(Scenario.kiss(4 * 1024.0), trace)          # on CUDA
     kiss_cpu = simulate(Scenario.kiss(4 * 1024.0), trace, device="cpu")
     kiss.summary()["cold_start_pct"]
+    grid = sweep(trace, [Scenario.kiss(m * 1024.0) for m in (2, 4, 8)])
 
 A policy is one pure function ``fn(xp, ctx)`` on the numpy spelling;
 ``xp`` here is :mod:`repro_torch.core.xp`, so a body written for the
@@ -22,11 +23,12 @@ from ..core.registry import (REPLACEMENT, RESIZE, ROUTING, PolicySpec,
                              register_replacement, register_resize_policy,
                              register_routing, replacement_policies,
                              resize_policies, routing_policies)
-from .api import simulate
+from .api import simulate, sweep
 from .chains import ChainMetrics, Chains
 from .result import SUMMARY_KEYS, Result
 from .scenario import Resize, Scenario
-from .telemetry import Telemetry, TelemetrySeries, trace_fingerprint
+from .telemetry import (Telemetry, TelemetrySeries, run_manifest,
+                        trace_fingerprint, write_manifest)
 from . import policies  # registers cost_model, slack_aware  # noqa: F401
 
 __all__ = [
@@ -35,5 +37,6 @@ __all__ = [
     "RouteCtx", "SUMMARY_KEYS", "Scenario", "SlotStats", "Telemetry",
     "TelemetrySeries", "register_replacement", "register_resize_policy",
     "register_routing", "replacement_policies", "resize_policies",
-    "routing_policies", "simulate", "trace_fingerprint",
+    "routing_policies", "run_manifest", "simulate", "sweep",
+    "trace_fingerprint", "write_manifest",
 ]

@@ -1,23 +1,27 @@
-"""The front door: ``simulate(scenario, trace)`` (port of
+"""The front door: ``simulate(scenario, trace)`` and ``sweep`` (port of
 ``repro.sim.api``).
 
-``simulate`` runs on the CUDA device unless the caller passes
-``device="cpu"``; with no card and no ``device`` it raises.  The step
-mode is one of ``STEP_MODES`` (``"gather"``, ``"vmap"``, ``"fused"``),
-all bitwise equal; ``"fused"`` runs the hand-written CUDA kernel of
+Both run on the CUDA device unless the caller passes ``device="cpu"``;
+with no card and no ``device`` they raise.  The step mode is one of
+``STEP_MODES`` (``"gather"``, ``"vmap"``, ``"fused"``), all bitwise
+equal; ``"fused"`` runs the hand-written CUDA kernel of
 ``repro_torch.kernels.pool_step`` on a CUDA device and its plain torch
 version on the CPU.  A scenario with ``failures``, ``autoscale``,
 ``telemetry``, ``chains`` or ``resize`` and a run with ``chunk_events``
-give bitwise the reference's results.  Not ported yet: ``sweep`` (ROADMAP A12) and
-the numpy oracle ``engine="ref"`` (A14).
+give bitwise the reference's results, one run or a sweep's lane.  Not
+ported yet: the numpy oracle ``engine="ref"`` (ROADMAP A14) and sweeps
+sharded across devices (``devices`` above 1, A13).
 """
 from __future__ import annotations
+
+from typing import Iterable, Sequence
 
 import numpy as np
 
 from .._device import resolve_device
-from ..cluster.engine import (_simulate_cluster, _simulate_cluster_autoscale,
-                              check_chunk_events, check_step_mode)
+from ..cluster.engine import (_run_group, _run_group_autoscale,
+                              check_chunk_events, check_devices,
+                              check_step_mode)
 from ..core.types import Trace
 from .chains import metrics_from_arrays
 from .result import Result
@@ -25,6 +29,30 @@ from .scenario import Scenario
 from .telemetry import series_from_arrays, trace_fingerprint
 
 _ENGINES = ("torch",)
+
+
+def _check_engine(engine: str) -> None:
+    """Accept the port's engine and the reference's oracle name, which
+    the callers refuse after their validation (ROADMAP A14)."""
+    if engine not in _ENGINES + ("ref",):
+        raise ValueError(f"engine must be one of {_ENGINES}, got {engine!r}")
+
+
+def _no_oracle() -> NotImplementedError:
+    return NotImplementedError(
+        "engine='ref' (the numpy oracle) is not in the PyTorch port "
+        "yet (ROADMAP A14)")
+
+
+def _check_chunkable(scenario: Scenario, chunk_events) -> int | None:
+    """Shared ``chunk_events`` validation for simulate and sweep."""
+    chunk = check_chunk_events(chunk_events)
+    if chunk is not None and scenario.autoscale is not None:
+        raise ValueError(
+            "chunk_events does not compose with autoscale: an autoscaled "
+            "run already steps one epoch at a time; drop chunk_events or "
+            "the Autoscale")
+    return chunk
 
 
 def _telw(scenario: Scenario) -> int | None:
@@ -45,6 +73,27 @@ def _chain_plan(scenario: Scenario, trace: Trace):
             "(Trace.chain_id/stage/chain_len set) — e.g. "
             "repro_torch.workloads.chained_trace")
     return scenario.chains.compile(trace)
+
+
+def _wrap(scenario: Scenario, trace: Trace, raw, extras: dict, fracs,
+          telw: int | None, info: dict, plan=None) -> Result:
+    """Assemble the :class:`Result`: lift the window arrays into a
+    :class:`TelemetrySeries` and the per-chain arrays into a
+    :class:`ChainMetrics`, attach the run info and, for an autoscaled
+    run, the epoch-boundary time axis."""
+    ep_t = None
+    if scenario.autoscale is not None:
+        ep_t = _epoch_times(trace, scenario.autoscale.epoch_events)
+    return Result(scenario=scenario, raw=raw, epoch_fracs=fracs,
+                  epoch_active=extras.get("active"),
+                  node_up=extras.get("node_up"),
+                  invalidated=extras.get("invalidated"),
+                  telemetry=(None if telw is None else series_from_arrays(
+                      extras["telemetry"], trace, telw)),
+                  chains=(None if plan is None else metrics_from_arrays(
+                      extras["chains"], plan)),
+                  run_info=info, epoch_t=ep_t,
+                  vertical=extras.get("vertical"))
 
 
 def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
@@ -71,46 +120,98 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
     the run happens:
     ``None`` means ``"cuda"``."""
     if engine == "ref":
-        raise NotImplementedError(
-            "engine='ref' (the numpy oracle) is not in the PyTorch port "
-            "yet (ROADMAP A14)")
-    if engine not in _ENGINES:
-        raise ValueError(f"engine must be one of {_ENGINES}, got {engine!r}")
+        raise _no_oracle()
+    _check_engine(engine)
     check_step_mode(mode)
-    chunk = check_chunk_events(chunk_events)
-    asc = scenario.autoscale
-    if chunk is not None and asc is not None:
-        raise ValueError(
-            "chunk_events does not compose with autoscale: an autoscaled "
-            "run already steps one epoch at a time; drop chunk_events or "
-            "the Autoscale")
-    telw = _telw(scenario)
-    plan = _chain_plan(scenario, trace)
-    dev = resolve_device(device)
-    cfg = scenario.to_cluster_config()
-    fracs = ep_t = None
-    if asc is None:
-        raw, extras = _simulate_cluster(cfg, trace, dev, rng_seed, mode,
-                                        chunk, scenario.failures,
-                                        telemetry=telw, chains=plan)
+    chunk = _check_chunkable(scenario, chunk_events)
+    return sweep(trace, [scenario], engine=engine, mode=mode,
+                 rng_seed=rng_seed, chunk_events=chunk, device=device)[0]
+
+
+def sweep(trace: Trace, scenarios: Iterable[Scenario], *,
+          engine: str = "torch", mode: str | Sequence[str] = "gather",
+          rng_seed: int = 0, chunk_events: int | None = None,
+          devices: int | str | None = None, device=None) -> list[Result]:
+    """Evaluate many scenarios on one trace; results in input order.
+
+    Scenarios that share the stacked shapes and the run's shape (the
+    reference's bucket key: ``n_nodes``, ``max_slots``, the epoch length
+    of an autoscaled scenario, failures on or off, the telemetry window,
+    chains on or off, vertical scaling on or off, and the step mode) run
+    as ONE group: its lanes are a leading tensor axis of one cluster step
+    and, on the card, of one block runner, so each block of events is
+    one CUDA graph replay for every lane (one B1 launch an event for all
+    of the group's pools in ``"fused"``).  Everything else a scenario
+    sets is per-lane data: capacities and splits, routing and
+    replacement policies, cloud pricing, failure windows, deadlines,
+    resize policies and floors, the autoscaler's parameters.  Each lane
+    is bitwise the same scenario's :func:`simulate` and the reference's
+    sweep lane.
+
+    ``mode`` is one step formulation for every lane or a per-scenario
+    sequence (lanes bucket by it).  ``chunk_events`` runs every group
+    chunk by chunk (see :func:`simulate`), carrying all of its lanes'
+    state at once; an autoscaled scenario refuses it (``ValueError``).
+    ``devices`` is validated as the reference's: ``None`` or 1 (or
+    ``"all"`` with one visible device) run here; a count above 1 raises
+    ``NotImplementedError`` (sharded sweeps, ROADMAP A13).
+    ``engine="ref"`` raises ``NotImplementedError`` after the same
+    validation (the numpy oracle, A14).  ``device`` is where the run
+    happens: ``None`` means ``"cuda"``, and without a card it raises
+    (pass ``device="cpu"``)."""
+    _check_engine(engine)
+    scenarios = list(scenarios)
+    if not scenarios:
+        raise ValueError("sweep: scenarios must be non-empty")
+    if isinstance(mode, str):
+        modes = [mode] * len(scenarios)
     else:
-        raw, fracs, extras = _simulate_cluster_autoscale(
-            cfg, asc, trace, dev, rng_seed, mode, scenario.failures,
-            telemetry=telw, chains=plan)
-        ep_t = _epoch_times(trace, asc.epoch_events)
-    info = {"engine": engine, "mode": mode, "chunk_events": chunk,
-            "devices": None, "device": str(dev), "rng_seed": rng_seed,
-            "trace_fingerprint": trace_fingerprint(trace)}
-    return Result(scenario=scenario, raw=raw, epoch_fracs=fracs,
-                  epoch_active=extras.get("active"),
-                  node_up=extras.get("node_up"),
-                  invalidated=extras.get("invalidated"),
-                  telemetry=(None if telw is None else series_from_arrays(
-                      extras["telemetry"], trace, telw)),
-                  chains=(None if plan is None else metrics_from_arrays(
-                      extras["chains"], plan)),
-                  run_info=info, epoch_t=ep_t,
-                  vertical=extras.get("vertical"))
+        modes = list(mode)
+        if len(modes) != len(scenarios):
+            raise ValueError(
+                f"sweep: per-scenario mode needs {len(scenarios)} "
+                f"entries, got {len(modes)}")
+    for m in modes:
+        check_step_mode(m)
+    chunk = None
+    for s in scenarios:
+        chunk = _check_chunkable(s, chunk_events)
+    dev_count = check_devices(devices)
+    if engine == "ref":
+        raise _no_oracle()
+    plans = [_chain_plan(s, trace) for s in scenarios]
+    dev = resolve_device(device)
+    groups: dict[tuple, list[int]] = {}
+    for i, s in enumerate(scenarios):
+        epoch = s.autoscale.epoch_events if s.autoscale else None
+        groups.setdefault(
+            (s.n_nodes, s.max_slots, epoch, s.failures is not None,
+             _telw(s), plans[i] is not None, s.resize is not None,
+             modes[i]), []).append(i)
+    results: list[Result | None] = [None] * len(scenarios)
+    base_info = {"engine": engine, "chunk_events": chunk,
+                 "devices": dev_count, "device": str(dev),
+                 "rng_seed": rng_seed,
+                 "trace_fingerprint": trace_fingerprint(trace)}
+    for ((_, _, epoch, failing, telw, chained, _, gmode),
+         idxs) in groups.items():
+        scns = [scenarios[i] for i in idxs]
+        cfgs = [s.to_cluster_config() for s in scns]
+        fails = [s.failures for s in scns] if failing else None
+        chs = [plans[i] for i in idxs] if chained else None
+        info = {**base_info, "mode": gmode}
+        if epoch is None:
+            outs = [(raw, None, extras) for raw, extras in _run_group(
+                cfgs, trace, dev, rng_seed, gmode, chunk, fails, telw, chs,
+                "sweep")]
+        else:
+            outs = _run_group_autoscale(
+                cfgs, [s.autoscale for s in scns], trace, dev, rng_seed,
+                gmode, fails, telw, chs, "sweep")
+        for i, (raw, fracs, extras) in zip(idxs, outs):
+            results[i] = _wrap(scenarios[i], trace, raw, extras, fracs,
+                               telw, info, plans[i])
+    return results
 
 
 def _epoch_times(trace: Trace, epoch_events: int) -> np.ndarray | None:

@@ -1,0 +1,156 @@
+"""The port's public names against the reference's, on the CPU.
+
+For ``repro.sim``, ``repro.cluster`` and ``repro.core``: every public
+name of the reference exists in the port unless it belongs to a slice
+still to come (``PENDING``, each with its ROADMAP id, so that a slice
+that lands shrinks the list); a function keeps the reference's
+positional parameters, the port adding at most a trailing ``device``;
+a class keeps the reference's public attributes (methods, class
+methods, properties), and so does each policy registry.  The reference
+is reached through a fixture, so the file also collects where JAX is
+absent.
+"""
+import importlib
+import inspect
+
+import pytest
+
+#: Public names of the reference that the port does not have yet, with
+#: the ROADMAP item that ports them.
+PENDING = {
+    "cluster": {
+        "cluster_outcomes_ref": "A14",     # the numpy oracle
+        "simulate_cluster_jax": "A14",     # deprecated shims
+        "simulate_cluster_ref": "A14",
+        "sweep_cluster": "A14",
+    },
+    "core": {
+        "WorkloadProfile": "A14",          # core/analyzer.py
+        "analyze": "A14",
+        "classify": "A14",
+        "cluster_outcomes_ref": "A14",     # the numpy oracle
+        "metrics_to_result": "A14",        # deprecated shims
+        "simulate_baseline": "A14",
+        "simulate_baseline_jax": "A14",
+        "simulate_kiss": "A14",
+        "simulate_kiss_jax": "A14",
+        "sweep_baseline": "A14",
+        "sweep_kiss": "A14",
+    },
+    "sim": {},
+}
+PACKAGES = tuple(PENDING)
+
+
+def modules(name):
+    pytest.importorskip("jax")
+    return (importlib.import_module(f"repro.{name}"),
+            importlib.import_module(f"repro_torch.{name}"))
+
+
+def public(mod) -> set:
+    return set(getattr(mod, "__all__", None)
+               or (n for n in dir(mod) if not n.startswith("_")))
+
+
+def positional(fn) -> list:
+    kinds = (inspect.Parameter.POSITIONAL_ONLY,
+             inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind in kinds]
+
+
+def members(cls) -> set:
+    return {k for c in cls.__mro__ if c is not object
+            for k in vars(c) if not k.startswith("_")}
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_public_names_are_ported(pkg):
+    ref, port = modules(pkg)
+    pending = set(PENDING[pkg])
+    missing = sorted(public(ref) - public(port) - pending)
+    assert not missing, f"repro_torch.{pkg} lacks {missing}"
+    # a pending name that has landed leaves the list
+    landed = sorted(pending & public(port))
+    assert not landed, f"repro_torch.{pkg} has {landed}: drop them " \
+        "from PENDING"
+    assert pending <= public(ref)
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_functions_keep_their_positional_parameters(pkg):
+    ref, port = modules(pkg)
+    for name in sorted(public(ref) & public(port)):
+        a, b = getattr(ref, name), getattr(port, name)
+        if not (inspect.isfunction(a) and inspect.isfunction(b)):
+            continue
+        want, got = positional(a), positional(b)
+        if got[-1:] == ["device"] and want[-1:] != ["device"]:
+            got = got[:-1]
+        assert got == want, f"{pkg}.{name}: {got} != {want}"
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_classes_and_registries_keep_their_members(pkg):
+    ref, port = modules(pkg)
+    for name in sorted(public(ref) & public(port)):
+        a, b = getattr(ref, name), getattr(port, name)
+        if inspect.isclass(a) and inspect.isclass(b):
+            lost = sorted(members(a) - members(b))
+            assert not lost, f"{pkg}.{name} lacks {lost}"
+        elif type(a).__name__ == "PolicyRegistry":
+            lost = sorted(members(type(a)) - members(type(b)))
+            assert not lost, f"{pkg}.{name} lacks {lost}"
+
+
+def test_device_defaults_to_the_card():
+    """``cluster_events`` and ``init_cluster`` take the reference's
+    calls: ``device`` is optional and ``None`` resolves as ``simulate``
+    does (the CUDA device, or a raise without one; never a silent CPU)."""
+    import torch
+    from repro_torch.cluster import (ClusterConfig, cluster_events,
+                                     init_cluster)
+    from repro_torch.workloads import quickstart_trace
+    for fn in (cluster_events, init_cluster):
+        assert inspect.signature(fn).parameters["device"].default is None
+    cfg = ClusterConfig.homogeneous(2, 1024.0, max_slots=8)
+    tr = quickstart_trace().head(5)
+    assert init_cluster(cfg, "cpu").valid.shape == (4, 8)
+    assert cluster_events(tr, 2, "cpu").t.shape == (5,)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_cluster(cfg)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cluster_events(tr, 2)
+
+
+def test_homogeneous_and_on_register_match_the_reference():
+    ref, port = modules("core")
+    for kiss in (True, False):
+        a = ref.ClusterConfig.homogeneous(3, 2048.0, kiss=kiss,
+                                          small_frac=0.7, max_slots=16)
+        b = port.ClusterConfig.homogeneous(3, 2048.0, kiss=kiss,
+                                           small_frac=0.7, max_slots=16)
+        assert (a.node_mb, a.small_frac, a.unified, a.max_slots) == \
+            (b.node_mb, b.small_frac, b.unified, b.max_slots)
+        assert (a.pool_caps() == b.pool_caps()).all()
+    from repro_torch.core.registry import PolicyRegistry
+    reg, calls = PolicyRegistry("test"), []
+
+    def hook():
+        calls.append(len(reg))
+    reg.on_register(hook)
+    reg.on_register(hook)                       # registered once
+    reg.register("a")(lambda xp, ctx: ctx)
+    reg.register("b")(lambda xp, ctx: ctx)
+    assert calls == [1, 2]
+
+
+def test_exports_the_slice_names():
+    from repro_torch.cluster import Autoscale, Failures
+    from repro_torch.core.continuum import Autoscale as A, Failures as F
+    from repro_torch.sim import run_manifest, sweep, write_manifest
+    from repro_torch.sim.telemetry import run_manifest as rm
+    assert (Autoscale, Failures) == (A, F)
+    assert run_manifest is rm and callable(sweep) and callable(write_manifest)

@@ -209,8 +209,8 @@ def busy_cluster(unified=(False, True, False), s=8):
         busy_until=torch.tensor(rng.integers(0, 20, shape),
                                 dtype=torch.float32))
     step = engine._make_step(routing, unified, cloud, n_nodes, "gather")
-    carry = engine._HostCarry(step, pools, torch.ones(n_nodes, dtype=bool),
-                              n_nodes)
+    carry = engine._HostCarry(step, pools,
+                              torch.ones((1, n_nodes), dtype=bool))
     return cfg, carry, unified
 
 
@@ -219,12 +219,12 @@ def test_unified_node_is_never_resized():
     move, the unified node's pools stay as they were."""
     cfg, carry, unified = busy_cluster()
     before = carry.pools
-    carry.press[:, 0] = 40.0
+    carry.press[0, :, 0] = 40.0
     inputs = engine._autoscale_inputs(
         cfg, T.Autoscale(epoch_events=10, gain=0.5), "cpu")
     frac = engine._epoch_end(carry, inputs.frac0, inputs, unified,
                              torch.tensor(10.0), torch.tensor(10.0))
-    assert frac.tolist() == pytest.approx([0.9, 0.8, 0.9])
+    assert frac[0].tolist() == pytest.approx([0.9, 0.8, 0.9])
     after = carry.pools
     for f in ("capacity", "free", "valid"):
         a, b = getattr(before, f), getattr(after, f)
@@ -249,8 +249,8 @@ def test_used_n_tie_retires_the_first():
     n_res = pools.valid.view(3, -1).sum(1)
     engine._epoch_end(carry, inputs.frac0, inputs, unified,
                       torch.tensor(-1.0), torch.tensor(10.0))
-    assert carry.active.tolist() == [True, False, True]
-    assert carry.inval.tolist() == [0, int(n_res[1]), 0]
+    assert carry.active[0].tolist() == [True, False, True]
+    assert carry.inval[0].tolist() == [0, int(n_res[1]), 0]
     assert not carry.pools.valid[2:4].any()
 
 
@@ -377,14 +377,14 @@ def test_runner_commit_writes_in_place(short_trace):
             runner.active.data_ptr(), runner.inval.data_ptr()]
     ptrs = storage()
     ev = engine.cluster_events(short_trace.head(5), 3, "cpu")
-    node = torch.empty(5, dtype=torch.int32)
+    node = torch.empty((5, 1), dtype=torch.int32)
     runner.run_chunk(ev, None, None, node, torch.empty_like(node))
     runner.press.fill_(3.0)
     runner.dropw.fill_(0.0)                       # no drops: retire
     engine._epoch_end(runner, inputs.frac0, inputs, unified,
                       ev.t.amax(), torch.tensor(5.0))
     assert storage() == ptrs
-    assert runner.active.sum() == 1 and not runner.active[2]
+    assert runner.active.sum() == 1 and not runner.active[0, 2]
     f32 = np.float32
     np.testing.assert_array_equal(            # an even split: frac stays
         runner.pools.capacity.numpy()[[0, 1]],

@@ -16,7 +16,8 @@ from hypothesis import strategies as st
 
 from repro_torch.core.pool import _evict_place_lax as torch_lax
 from repro_torch.core.pool import get_step_backend
-from repro_torch.kernels.pool_step import (MAX_SLOTS, evict_place_cuda,
+from repro_torch.kernels.pool_step import (MAX_POOLS, MAX_SLOTS,
+                                           evict_place_cuda,
                                            evict_place_plain,
                                            fused_evict_place,
                                            pack_keys_plain)
@@ -176,6 +177,34 @@ def test_kernel_matches_plain_at_path_shapes(shape, cuda_device):
     torch.cuda.synchronize()
     assert_same(tuple(t.cpu() for t in evict_place_plain(*args)), got,
                 f"kernel vs plain {shape}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(80, 1024), (192, 256)])
+def test_kernel_matches_plain_at_sweep_shapes(shape, cuda_device):
+    """A sweep group's rows, lane-major ``[L * 2N, S]``: the edge grid's
+    40 static lanes of one node and the routing grid's six het16 lanes,
+    one launch for every row."""
+    p, s = shape
+    args = to_torch(signed_zero_batch(np.random.default_rng(p + s), p, s),
+                    cuda_device)
+    before = evict_place_cuda.launches
+    got = evict_place_cuda(*args)
+    torch.cuda.synchronize()
+    assert evict_place_cuda.launches == before + 1
+    assert_same(tuple(t.cpu() for t in evict_place_plain(*args)), got,
+                f"kernel vs plain {shape}")
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_refuses_rows_past_the_grid(cuda_device):
+    """More rows than the launch's grid holds raise before any launch."""
+    tall = to_torch(random_batch(np.random.default_rng(0), p=MAX_POOLS + 1,
+                                 s=2), cuda_device)
+    before = evict_place_cuda.launches
+    with pytest.raises(ValueError, match="pools its"):
+        evict_place_cuda(*tall)
+    assert evict_place_cuda.launches == before
 
 
 @pytest.mark.cuda

@@ -499,7 +499,11 @@ def test_vertical_goldens_are_the_references(ref):
         assert trace_fingerprint(drawn) == smoke.GOLDEN_REPLAY_TRACE
     scns = smoke.vertical_scenarios(quickstart_trace(), replay)
     assert set(scns) == set(smoke.GOLDEN_RZ)
-    assert {name for name, _, _ in smoke.VERTICAL_RUNS} == set(scns)
+    # each runs on the card: a simulate run, a lane of the vertical
+    # phase's sweep, or a lane of the sweep phase's replay sweep
+    assert ({name for name, _, _ in smoke.VERTICAL_RUNS}
+            | set(smoke.VERTICAL_SWEEP)
+            | set(smoke.REPLAY_LANES.values())) == set(scns)
     for name, (scn, tr) in scns.items():
         chunk = smoke.RZ_REPLAY_CHUNK if len(tr) > smoke.RZ_REPLAY_CHUNK \
             else None
