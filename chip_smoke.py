@@ -12,8 +12,9 @@ Phases, each printing its own lines:
    ``nvcc`` each, all at once (timed, with ``ptxas``'s report);
 3. kernel B1 against its plain torch version on tie-heavy quantized
    batches (``-0.0`` and ``+0.0`` priorities among them) at the
-   simulator's shapes (the vertical phase's ``[8, 128]`` and the sweep
-   phase's ``[80, 1024]`` and ``[192, 256]`` among them) and a ragged
+   simulator's shapes (the vertical phase's ``[8, 128]``, the sweep
+   phase's ``[80, 1024]`` and ``[192, 256]`` and the oracle phase's
+   ``[6, 1024]`` among them) and a ragged
    one, bitwise on every output, then
    timed per launch with CUDA events, and alone by the profiler, which
    must see its one kernel, ``evict_place_kernel``;
@@ -72,8 +73,9 @@ Phases, each printing its own lines:
    outcomes must not move; its overhead is printed), het16 autoscaled
    with windows, and the chain benchmark's scenarios
    (``chain_scenarios``, ``slack_aware`` and ``size_aware``) on its
-   stored trace in ``gather`` and ``vmap`` (``slack_aware`` in ``fused``
-   in chunks; both in ``fused`` as chain-grid lanes), held to
+   stored trace as the two lanes of one sweep in ``gather`` and in
+   ``vmap`` (``slack_aware`` in ``fused`` in chunks; both in ``fused``
+   as chain-grid lanes), held to
    ``GOLDEN_TEL`` and
    ``GOLDEN_CHAIN`` (every window array, every per-chain array, the
    summary; pinned by ``tests/test_torch_{telemetry,chains}.py``); then
@@ -97,7 +99,18 @@ Phases, each printing its own lines:
    ``RZ_REPLAY_CHUNK``), every lane held to ``GOLDEN_SWEEP`` or
    ``GOLDEN_RZ`` (pinned by ``tests/test_torch_sweep.py``), B1 once a
    ``fused`` event of a group, with each sweep's and each group's
-   lane-events/s beside one ``simulate``'s events/s; then the device's
+   lane-events/s beside one ``simulate``'s events/s; then the numpy
+   oracle (``oracle_phase``): the vertical benchmark's stored Azure
+   tables written as the public CSVs and read back by
+   ``load_azure_trace`` must equal ``trace_from_tables`` of them drawn
+   here and the stored replay trace (``analyze`` of it printed), and
+   card runs must equal ``sweep(..., engine="ref")`` on this host,
+   bitwise: earlier phases' runs (two edge-grid lanes, a chain-grid
+   lane, the failure phase's and the autoscale phase's ``fused`` runs)
+   and two new ``fused`` sweeps over ``ORACLE_EVENTS`` events of traces
+   drawn here, which have no JAX golden (``bursty_trace(seed=0)``, and
+   the ingested replay through the vertical benchmark's hybrid lane
+   with telemetry and het16); then the device's
    busy share and device records an event over two graph replays, for
    the static, the autoscaled and the resize runner, for telemetry and
    chains on and for sweeps of 1, 8 and 40 lanes, with B1's kernel
@@ -497,11 +510,12 @@ F32_OPS_S = 67e12
 BF16_OPS_S = 989e12
 
 #: path (kiss4096), path (het16), ragged, the vertical phase's cluster,
-#: and the sweep phase's widest groups: the edge grid's 40 static lanes
+#: the sweep phase's widest groups: the edge grid's 40 static lanes
 #: (80 rows of 1024 slots) and the routing grid's six het16 lanes (192
-#: rows of 256)
+#: rows of 256), and the oracle phase's bursty grid (three one-node
+#: lanes, 6 rows of 1024)
 KERNEL_SHAPES = ((2, 1024), (32, 256), (3, 1000), (8, 128), (80, 1024),
-                 (192, 256))
+                 (192, 256), (6, 1024))
 #: The one ``__global__`` kernel each B1 launch runs.
 POOL_KERNELS = ["evict_place_kernel"]
 
@@ -1344,6 +1358,8 @@ def failure_phase(dev, trace) -> dict:
                     node_up = res.node_up
                 check(np.array_equal(res.node_up, node_up),
                       f"{what}: node_up differs from the first run")
+                if (mode, chunk) == ("fused", None):
+                    kept = res
         counts = total.delta()                # ... and ends here
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -1352,7 +1368,7 @@ def failure_phase(dev, trace) -> dict:
           f"{GOLDEN_FAIL['downtime_pct']}%); B1 launched "
           f"{counts['b1_launches']} times", flush=True)
     return {"launches": counts["b1_launches"], "counts": counts,
-            "runs": runs}
+            "runs": runs, "oracle_runs": {"het16_failures": (kept, head)}}
 
 
 def autoscale_scenarios(trace) -> dict:
@@ -1439,6 +1455,8 @@ def autoscale_phase(dev, trace) -> dict:
                     res, run = timed_run(
                         what, spans, mode,
                         lambda: simulate(scn, trace, mode=mode, device=dev))
+                    if (name, mode) == ("kiss4096", "fused"):
+                        kept = res
                     got = autoscale_digests(res)
                     check(got == GOLDEN_ASC[name],
                           f"{what}: {got} != the JAX reference "
@@ -1471,7 +1489,8 @@ def autoscale_phase(dev, trace) -> dict:
     print(f"autoscale: every run matches the JAX reference bitwise; B1 "
           f"launched {counts['b1_launches']} times", flush=True)
     return {"launches": counts["b1_launches"], "counts": counts,
-            "runs": runs}
+            "runs": runs,
+            "oracle_runs": {"autoscale_kiss4096": (kept, trace)}}
 
 
 def telemetry_scenarios(trace) -> dict:
@@ -1530,13 +1549,14 @@ def telemetry_phase(dev, trace) -> dict:
     every mode, monolithic and in chunks of ``TEL_CHUNK``, and the same
     scenario without telemetry (its outcomes must not move; the
     overhead compares the two monolithic runs' walls without their
-    capture); ``chain_scenarios`` over the chain benchmark's trace in
-    ``gather`` and ``vmap`` (in ``fused`` they are lanes of the sweep
-    phase's chain grid), ``slack_aware`` in ``fused`` in chunks of
+    capture); ``chain_scenarios`` over the chain benchmark's trace as
+    the two lanes of one sweep in ``gather`` and in ``vmap`` (in
+    ``fused`` they are lanes of the sweep phase's chain grid),
+    ``slack_aware`` in ``fused`` in chunks of
     ``CHAIN_CHUNK``; and het16 autoscaled with telemetry in ``fused``.
     Every run goes through the block runner (its counts and B1's are
     checked) and is held to ``GOLDEN_TEL``/``GOLDEN_CHAIN``."""
-    from repro_torch.sim import simulate
+    from repro_torch.sim import simulate, sweep
     from repro_torch.sim.api import trace_fingerprint
     from repro_torch.workloads import benchmark_chained_trace
     ctr = benchmark_chained_trace()
@@ -1589,11 +1609,19 @@ def telemetry_phase(dev, trace) -> dict:
             r_on["overhead"] = over
             print(f"  telemetry overhead, mode={mode}: {100 * over:.1f}% "
                   "of the run without it (walls less capture)", flush=True)
-        for name, scn in chains.items():      # fused: the chain grid's
-            for mode in ("gather", "vmap"):
-                held(name, f"chains/{name}/{mode}",
-                     f"chains {name} mode={mode}", [nc], mode, scn, ctr,
-                     GOLDEN_CHAIN)
+        for mode in ("gather", "vmap"):       # fused: the chain grid's
+            lanes, runs[f"chains/{mode}"] = timed_sweep(
+                f"chains mode={mode}", [nc], mode, len(chains), nc,
+                lambda: sweep(ctr, list(chains.values()), mode=mode,
+                              device=dev))
+            for name, res in zip(chains, lanes):
+                got = tel_digests(res)
+                check(got == GOLDEN_CHAIN[name],
+                      f"chains {name} mode={mode}: {got} != the JAX "
+                      f"reference {GOLDEN_CHAIN[name]}")
+                check(all(np.isfinite(v) for v in res.summary().values()),
+                      f"chains {name} mode={mode}: non-finite summary "
+                      "value")
         held("slack_aware", "chains/slack_aware/fused/chunked",
              f"chains slack_aware mode=fused chunk_events={CHAIN_CHUNK}",
              spans_of(nc, CHAIN_CHUNK), "fused", chains["slack_aware"], ctr,
@@ -2153,9 +2181,12 @@ def sweep_phase(dev, trace, path_runs) -> dict:
           f"static lanes {static['lane_events_per_s']:.1f} lane-events/s "
           f"against one kiss4096 simulate's {single:.1f} events/s: "
           f"batching factor {factor:.2f}", flush=True)
+    kept = {f"edge_grid/{k}": (edge[k], trace) for k in ORACLE_EDGE_LANES}
+    kept[f"chain_grid/{ORACLE_CHAIN_LANE}"] = (
+        lanes_of["chain_grid/fused"][ORACLE_CHAIN_LANE], ctr)
     return {"launches": counts["b1_launches"], "counts": counts,
             "runs": runs, "batching_factor": factor,
-            "single_events_per_s": single}
+            "single_events_per_s": single, "oracle_runs": kept}
 
 
 #: The lane counts of the busy phase's sweep flavour: the edge grid's
@@ -2254,6 +2285,177 @@ def busy_phase(dev, trace) -> dict:
                   f"L = {lanes} {r['records_vs_one_lane']:.3f}"
                   for lanes, r in rec.items()), flush=True)
     return out
+
+
+#: The card runs of earlier phases that the oracle phase holds to the
+#: numpy oracle: two lanes of the sweep phase's edge grid, one lane of its
+#: chain grid (and, by their phases, the failure phase's ``fused`` run and
+#: the autoscale phase's ``fused`` kiss4096).
+ORACLE_EDGE_LANES = ("kiss_2g_0.9", "baseline_3g")
+ORACLE_CHAIN_LANE = "cost_model-tight"
+#: The events of the traces the oracle phase draws on this host: 128
+#: blocks of 32, so no event runs in a runner's eager remainder.
+ORACLE_EVENTS = 4096
+#: The telemetry window of the replay sweep's hybrid lane.
+ORACLE_WINDOW = 512
+
+
+def same_trace(a, b) -> bool:
+    """Two traces equal field for field, dtypes and bytes included."""
+    return all((x is None and y is None) or (
+        x is not None and y is not None and x.dtype == y.dtype
+        and x.shape == y.shape and x.tobytes() == y.tobytes())
+        for x, y in zip(a, b))
+
+
+def same_result(card, host, what: str) -> None:
+    """``card`` (the torch engine's ``Result``) equals ``host`` (the
+    oracle's) bitwise: per-event, per-epoch and failure arrays, the
+    latencies, the vertical totals, every window and per-chain array and
+    every ``summary()`` key."""
+    arrays = {f: getattr(card, f) for f in (
+        "node", "outcome", "per_node", "fracs", "active", "invalidated",
+        "node_up", "epoch_t")}
+    arrays["latencies"] = card.raw.latencies
+    want = {f: getattr(host, f) for f in arrays if f != "latencies"}
+    want["latencies"] = host.raw.latencies
+    for k, v in (card.vertical or {}).items():
+        arrays[f"vertical.{k}"] = v
+    for k, v in (host.vertical or {}).items():
+        want[f"vertical.{k}"] = v
+    for owner in ("telemetry", "chains"):
+        for side, res in ((arrays, card), (want, host)):
+            obj = getattr(res, owner)
+            for f in (dataclasses.fields(obj) if obj is not None else ()):
+                v = getattr(obj, f.name)
+                if isinstance(v, np.ndarray):
+                    side[f"{owner}.{f.name}"] = v
+    check(arrays.keys() == want.keys(),
+          f"{what}: arrays {sorted(arrays)} != the oracle's {sorted(want)}")
+    for k, a in arrays.items():
+        b = want[k]
+        check((a is None) == (b is None), f"{what}: {k} present on one side")
+        if a is not None:
+            a, b = np.asarray(a), np.asarray(b)
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and a.tobytes() == b.tobytes(),
+                  f"{what}: {k} differs from the numpy oracle's")
+    check(card.summary() == host.summary(),
+          f"{what}: summary differs from the numpy oracle's")
+
+
+def oracle_phase(dev, trace, kept: dict) -> dict:
+    """The numpy oracle (``engine="ref"``) on this host, against the card.
+
+    1. Ingest: the vertical benchmark's stored Azure tables written as
+       the public CSVs and read back by ``load_azure_trace``, which must
+       equal ``trace_from_tables`` of the same tables drawn here and the
+       stored replay trace; ``analyze`` of it printed.
+    2. The card runs ``kept`` from earlier phases (edge-grid and
+       chain-grid lanes, the failure run, the autoscaled kiss4096), each
+       equal to ``sweep(..., engine="ref")`` of its scenario, bitwise.
+    3. Traces drawn here, with no JAX golden: ``bursty_trace(seed=0)``'s
+       and the ingested replay's first ``ORACLE_EVENTS``, each through one
+       ``fused`` sweep on the card (under ``set_sync_debug_mode("error")``,
+       every count zeroed before and read after, B1 once a ``fused``
+       event of a group), each lane equal to the oracle's.
+    Prints the oracle's host events/s (host time: numpy on the CPU) and
+    the card's lane-events/s."""
+    import tempfile
+    from repro_torch.core.analyzer import analyze
+    from repro_torch.sim import Scenario, sweep
+    from repro_torch.workloads import (benchmark_replay_tables,
+                                       benchmark_replay_trace, bursty_trace,
+                                       load_azure_trace, trace_from_tables,
+                                       write_azure_csvs)
+    tables = benchmark_replay_tables()
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        ingested = load_azure_trace(*write_azure_csvs(tables, d))
+    ingest_s = time.perf_counter() - t0
+    check(same_trace(ingested, trace_from_tables(tables)),
+          "ingest (a): load_azure_trace of the written CSVs differs from "
+          "trace_from_tables of the same tables")
+    check(same_trace(ingested, benchmark_replay_trace()),
+          "ingest (b): the ingested trace differs from the stored replay "
+          "trace")
+    prof = analyze(ingested)
+    print(f"oracle ingest: {tables.n_functions} functions x "
+          f"{tables.n_minutes} minutes -> CSVs -> {len(ingested)} events "
+          f"in {ingest_s:.2f} s, equal to trace_from_tables here and to the "
+          f"stored replay trace; analyze: {prof.small_count} small / "
+          f"{prof.large_count} large, invocation ratio "
+          f"{prof.invocation_ratio:.3f}, suggested small_frac "
+          f"{prof.suggested_small_frac:.3f}", flush=True)
+    host = {"events": 0, "s": 0.0}
+
+    def oracle(tr, scns):
+        t1 = time.perf_counter()
+        out = sweep(tr, scns, engine="ref")
+        host["s"] += time.perf_counter() - t1
+        host["events"] += len(tr) * len(scns)
+        return out
+
+    by_trace: dict = {}
+    for name, (res, tr) in kept.items():
+        by_trace.setdefault(id(tr), (tr, []))[1].append((name, res))
+    for tr, runs in by_trace.values():
+        for (name, res), want in zip(runs, oracle(
+                tr, [res.scenario for _, res in runs])):
+            same_result(res, want, f"oracle {name}")
+    print(f"oracle: the card's {', '.join(kept)} equal the numpy oracle "
+          "bitwise", flush=True)
+
+    n = ORACLE_EVENTS
+    bursty = bursty_trace(seed=0).head(n)
+    replay = ingested.head(n)
+    check(len(bursty) == len(replay) == n, "oracle: short traces")
+    grids = {
+        "bursty": (bursty, [Scenario.kiss(4096.0), Scenario.baseline(4096.0),
+                            Scenario.kiss(2048.0, small_frac=0.7)], [n]),
+        "replay": (replay, [dataclasses.replace(
+            vertical_lanes()["hybrid"], telemetry=ORACLE_WINDOW),
+            scenarios()["het16_size_aware"]], [n, n])}
+    runs, cards = {}, {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        check(sync_guard_refuses(dev),
+              "sync debug mode did not refuse a host sync")
+        zero_counts()                      # the oracle path starts here
+        total = RunCounts()
+        for name, (tr, scns, spans) in grids.items():
+            cards[name], runs[name] = timed_sweep(
+                f"oracle {name}/fused", spans, "fused", len(scns), n,
+                lambda: sweep(tr, scns, mode="fused", device=dev))
+        counts = total.delta()                # ... and ends here
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fused = sum(sum(spans) for _, _, spans in grids.values())
+    check(counts["b1_launches"] == fused,
+          f"oracle phase launched B1 {counts['b1_launches']} times, want "
+          f"{fused}")
+    for name, (tr, scns, _) in grids.items():
+        for i, (res, want) in enumerate(zip(cards[name], oracle(tr, scns))):
+            same_result(res, want, f"oracle {name} lane {i}")
+            check(all(np.isfinite(v) for v in res.summary().values()),
+                  f"oracle {name} lane {i}: non-finite summary value")
+    rate = host["events"] / host["s"]
+    print(f"oracle: the card's sweeps on traces drawn here (bursty_trace "
+          f"and the ingested replay, {n} events each) equal the numpy "
+          f"oracle bitwise; the oracle ran {host['events']} events in "
+          f"{host['s']:.2f} s of host time = {rate:.1f} events/s (numpy on "
+          f"the host CPU, not the device); B1 launched "
+          f"{counts['b1_launches']} times", flush=True)
+    return {"launches": counts["b1_launches"], "counts": counts,
+            "runs": runs, "ingest_s": ingest_s,
+            "host_events": host["events"], "host_s": host["s"],
+            "host_events_per_s": rate,
+            "analyze": {"small": prof.small_count,
+                        "large": prof.large_count,
+                        "invocation_ratio": prof.invocation_ratio,
+                        "suggested_small_frac": prof.suggested_small_frac}}
 
 
 #: ``launch.serve.default_registry(4)``'s models, at full width.
@@ -2718,9 +2920,9 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     print(card)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
-          flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, numpy "
+          f"{np.__version__}, {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()}", flush=True)
     t_start = time.perf_counter()
     seconds = {}
 
@@ -2743,6 +2945,9 @@ def main() -> int:
     telemetry = phase("telemetry", telemetry_phase, dev, trace)
     vertical = phase("vertical", vertical_phase, dev, trace)
     sweeps = phase("sweep", sweep_phase, dev, trace, path["runs"])
+    oracle = phase("oracle", oracle_phase, dev, trace, {
+        **sweeps["oracle_runs"], **failures["oracle_runs"],
+        **autoscale["oracle_runs"]})
     busy = phase("busy", busy_phase, dev, trace)
     serving = phase("serving", serving_phase, dev)
     eviction = phase("eviction", eviction_phase, dev, serving["sizes"])
@@ -2755,7 +2960,7 @@ def main() -> int:
     main_row = kernels["rows"][0]            # [2, 1024]: Scenario.kiss
     b1_path = (path["launches"] + autoscale["launches"]
                + telemetry["launches"] + vertical["launches"]
-               + sweeps["launches"])
+               + sweeps["launches"] + oracle["launches"])
     entries = [dict(name="pool_step.evict_place", route="cuda",
                     source="src/repro_torch/kernels/csrc/pool_step.cu",
                     replaces="src/repro/kernels/pool_step.py:43",
@@ -2766,6 +2971,7 @@ def main() -> int:
                         telemetry_chains=telemetry["launches"],
                         vertical=vertical["launches"],
                         sweep=sweeps["launches"],
+                        oracle=oracle["launches"],
                         failures=failures["launches"]),
                     cuda_kernels=POOL_KERNELS,
                     cuda_kernel_launches=b1_path,
@@ -2816,6 +3022,9 @@ def main() -> int:
         "sweep": {k: sweeps[k] for k in ("runs", "counts",
                                          "batching_factor",
                                          "single_events_per_s")},
+        "oracle": {k: oracle[k] for k in (
+            "runs", "counts", "ingest_s", "host_events", "host_s",
+            "host_events_per_s", "analyze")},
         "device_busy_share": busy,
         "serving": {k: serving[k] for k in ("stats", "wall_s", "models",
                                             "peak_gb", "busy")},

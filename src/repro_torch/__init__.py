@@ -25,6 +25,11 @@ Ported so far:
   each block of events replayed as one CUDA graph
   (``repro_torch.cluster.graphs``); a sweep's like-shaped lanes run as
   one leading tensor axis of that step and of its graphs;
+* the numpy oracle, ``simulate``/``sweep`` with ``engine="ref"``
+  (``core.continuum.cluster_outcomes_ref``, on the host, no card), the
+  workload generators and the Azure Functions 2019 CSV ingest
+  (``workloads``), the workload analyzer (``core.analyzer``) and the
+  reference's deprecated ``simulate_*``/``sweep_*`` entry points;
 * the dense serving path: ``serving.KissServer``/``UnifiedServer`` manage
   real model containers (``models``: the decoder-only transformer for
   the dense configs of ``configs``) in the paper's warm pools

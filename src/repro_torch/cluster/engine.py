@@ -93,6 +93,11 @@ spelling of :mod:`repro_torch.core.xp`), and ``vmap``/``fused`` step all
 lane differs in is data: policy codes, capacities, deadlines, resize
 codes and floors, failure masks ``[T, L, N]``, the autoscaler's
 parameters and membership.  A single run is the one-lane case.
+
+The module ends with the numpy oracle's entry points (the reference's
+``_simulate_cluster{,_failures,_autoscale}_ref``: ``cluster_outcomes_ref``
+on the host, priced by ``build_result``) and the reference's deprecated
+``simulate_cluster_jax``/``simulate_cluster_ref``/``sweep_cluster``.
 """
 from __future__ import annotations
 
@@ -103,8 +108,10 @@ import torch
 
 from .._device import resolve_device, sync_point
 from ..core import xp
+from ..core.compat import deprecated
 from ..core.continuum import (Autoscale, ChainPlan, ClusterConfig, Failures,
-                              cloud_cold_draws, route_hashes)
+                              cloud_cold_draws, cluster_outcomes_ref,
+                              route_hashes)
 from ..core.pool import (Event, PoolState, _evict_place_lax, _first_true,
                          _select, get_step_backend, init_pool, pool_resize,
                          pool_step_batch, stack_pools)
@@ -1328,3 +1335,78 @@ def _sweep_cluster_autoscale(trace: Trace, configs, autoscales,
     return _run_group_autoscale(configs, autoscales, trace, device,
                                 rng_seed, mode, failures, telemetry, chains,
                                 "autoscale sweep", block_events)
+
+
+# The numpy oracle's entry points (the reference's ``_simulate_cluster*_ref``):
+# ``cluster_outcomes_ref`` on the host, priced by ``build_result``.
+
+def _simulate_cluster_ref(cfg: ClusterConfig, trace: Trace,
+                          rng_seed: int = 0,
+                          telemetry: int | None = None,
+                          chains: ChainPlan | None = None):
+    """A static run of the oracle: a ``ClusterResult``, or with
+    ``telemetry``, ``chains`` or vertical scaling ``(result, extras)``."""
+    cloud_cold = cloud_cold_draws(len(trace), cfg.cloud_cold_prob, rng_seed)
+    out = cluster_outcomes_ref(cfg, trace, telemetry=telemetry,
+                               chains=chains,
+                               chain_cold=(cloud_cold if chains is not None
+                                           else None))
+    if (telemetry is None and chains is None
+            and cfg.resize_policy is None):
+        node, outcome = out
+        return build_result(cfg, trace, node, outcome, cloud_cold)
+    node, outcome, extras = out
+    return build_result(cfg, trace, node, outcome, cloud_cold), extras
+
+
+def _simulate_cluster_failures_ref(
+        cfg: ClusterConfig, failures: Failures, trace: Trace,
+        rng_seed: int = 0, telemetry: int | None = None,
+        chains: ChainPlan | None = None) -> tuple[ClusterResult, dict]:
+    """A failure-injected run of the oracle: ``(result, extras)``."""
+    cloud_cold = cloud_cold_draws(len(trace), cfg.cloud_cold_prob, rng_seed)
+    node, outcome, extras = cluster_outcomes_ref(
+        cfg, trace, failures=failures, telemetry=telemetry, chains=chains,
+        chain_cold=(cloud_cold if chains is not None else None))
+    return build_result(cfg, trace, node, outcome, cloud_cold), extras
+
+
+def _simulate_cluster_autoscale_ref(
+        cfg: ClusterConfig, asc: Autoscale, trace: Trace,
+        rng_seed: int = 0, failures: Failures | None = None,
+        telemetry: int | None = None, chains: ChainPlan | None = None
+        ) -> tuple[ClusterResult, np.ndarray, dict]:
+    """An autoscaled run of the oracle: ``(result, fracs, extras)``."""
+    cloud_cold = cloud_cold_draws(len(trace), cfg.cloud_cold_prob, rng_seed)
+    node, outcome, fracs, extras = cluster_outcomes_ref(
+        cfg, trace, autoscale=asc, failures=failures, telemetry=telemetry,
+        chains=chains,
+        chain_cold=(cloud_cold if chains is not None else None))
+    return build_result(cfg, trace, node, outcome, cloud_cold), fracs, extras
+
+
+@deprecated("repro_torch.sim.simulate(Scenario.cluster(...))")
+def simulate_cluster_jax(cfg: ClusterConfig, trace: Trace,
+                         rng_seed: int = 0, mode: str = "gather",
+                         device=None) -> ClusterResult:
+    """Simulate the cluster on ``trace`` with the port's engine, on
+    ``device`` (``None`` is the CUDA device); the name is the
+    reference's."""
+    return _simulate_cluster_torch(cfg, trace, device, rng_seed, mode)
+
+
+@deprecated("repro_torch.sim.simulate(Scenario.cluster(...), engine='ref')")
+def simulate_cluster_ref(cfg: ClusterConfig, trace: Trace,
+                         rng_seed: int = 0) -> ClusterResult:
+    """The numpy oracle's twin of :func:`simulate_cluster_jax` (same
+    result type)."""
+    return _simulate_cluster_ref(cfg, trace, rng_seed)
+
+
+@deprecated("repro_torch.sim.sweep(trace, scenarios)")
+def sweep_cluster(trace: Trace, configs, rng_seed: int = 0,
+                  mode: str = "gather", device=None) -> list[ClusterResult]:
+    """Evaluate many cluster configurations sharing ``n_nodes`` and
+    ``max_slots`` as the lanes of one run of the port's engine, on
+    ``device`` (``None`` is the CUDA device)."""
+    return _sweep_cluster(trace, configs, rng_seed, mode, device=device)

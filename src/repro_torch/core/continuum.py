@@ -6,8 +6,14 @@ reference: ``ClusterConfig`` (with ``pool_caps``), the routing hashes,
 the pre-drawn cloud cold-start coins, the end-to-end pricing, the
 failure schedule (``Failures``, compiled on the host into per-event
 masks), the autoscaler's knob (``Autoscale``) and the chain plan
-(``ChainPlan``, ``compile_chains``).  The numpy oracle
-(``cluster_outcomes_ref``) is not ported yet (ROADMAP A14).
+(``ChainPlan``, ``compile_chains``); then the numpy oracle
+(``cluster_outcomes_ref``), one event at a time over
+:class:`~repro_torch.core.pool_ref.WarmPool`, which ``simulate(...,
+engine="ref")`` runs, and the historical ``ContinuumConfig`` /
+``simulate_continuum``.  The oracle calls each routing policy's body
+with ``np`` and 1-D numpy ctx arrays (the bodies are written in numpy's
+spelling), and mirrors every float32 step of the engine, so the two give
+identical arrays.
 """
 from __future__ import annotations
 
@@ -17,8 +23,13 @@ from typing import NamedTuple
 
 import numpy as np
 
-from .registry import REPLACEMENT, RESIZE, ROUTING
-from .types import HIT, MISS, ClassMetrics, Policy, Trace
+from .compat import deprecated
+from .pool_ref import WarmPool
+from .registry import REPLACEMENT, RESIZE, ROUTING, RouteCtx
+from .types import (DROP, HIT, MISS, ClassMetrics, Policy, PoolConfig,
+                    Trace)
+
+_OUT_CODE = {"hit": HIT, "miss": MISS, "drop": DROP}
 
 
 class RoutingPolicy(enum.IntEnum):
@@ -328,6 +339,349 @@ def compile_chains(trace: Trace, deadline_s: float | None = None,
                      n_chains=n_chains)
 
 
+# --------------------------------------------------------------------------
+# the numpy oracle: one event at a time over WarmPool
+# --------------------------------------------------------------------------
+
+def _tel_acc_ref(n_windows: int, n_nodes: int) -> dict:
+    """Zeroed window arrays for the oracle's telemetry mirror — the same
+    schema the engine's ``_tel_np`` emits (``repro_torch.sim.telemetry``
+    documents the fields)."""
+    return {"counts": np.zeros((n_windows, 2, 3), np.int64),
+            "free_mb": np.zeros((n_windows, n_nodes), np.float32),
+            "occupancy": np.zeros((n_windows, n_nodes), np.int64),
+            "invalidated": np.zeros(n_windows, np.int64),
+            "nodes_up": np.zeros(n_windows, np.int64),
+            "nodes_active": np.zeros(n_windows, np.int64),
+            "chain_miss": np.zeros(n_windows, np.int64)}
+
+
+def cluster_outcomes_ref(cfg: ClusterConfig, trace: Trace,
+                         autoscale: Autoscale | None = None,
+                         failures: "Failures | None" = None,
+                         telemetry: int | None = None,
+                         chains: ChainPlan | None = None,
+                         chain_cold: np.ndarray | None = None):
+    """Sequential oracle for the cluster: returns ``(node, outcome)`` as
+    i32[T] arrays (outcome: 0 hit, 1 miss, 2 drop/offload).  With
+    ``failures`` an *extras* dict is appended; with ``autoscale`` a
+    per-epoch ``fracs`` f32[E, N] array and the extras dict are appended
+    (``(node, outcome, fracs, extras)``).  ``extras`` carries
+    ``invalidated`` (i64[N] residents killed by recovery/retirement),
+    ``node_up`` (the compiled bool[T, N] failure mask, or None) and — on
+    the autoscaled path — ``active`` (bool[E, N] membership trajectory).
+
+    ``telemetry`` (a window length in events) additionally accumulates
+    per-window counters into ``extras["telemetry"]`` — counter updates
+    are exact integers on the emitted outcomes and the ``free_mb``
+    snapshot goes through float32 step for step, so the window arrays are
+    *bit-identical* to the torch engine's window arrays (a plain run
+    with telemetry returns ``(node, outcome, extras)``).
+
+    ``chains`` (a :class:`ChainPlan`) threads per-chain accounting
+    through the event loop — accumulated end-to-end latency, dropped /
+    done / missed flags, with each stage priced hit -> warm, miss ->
+    cold, drop -> RTT + cloud (using the pre-drawn ``chain_cold`` coin
+    flips, the same ``cloud_cold_draws`` array the host pricing uses) —
+    every scalar through float32 in event order, mirroring the torch
+    engine's chain accumulator bit for bit.  Routing policies see the
+    pre-step remaining slack and stage via ``RouteCtx.chain_slack`` /
+    ``chain_stage``.  Results land in ``extras["chains"]`` (a plain run
+    with chains returns ``(node, outcome, extras)``); with telemetry the
+    window arrays additionally count per-window deadline misses.
+
+    With a configured ``cfg.resize_policy`` (vertical scaling) the run
+    always returns an extras dict carrying ``extras["vertical"]``:
+    per-pool ``acc_used_mb``/``acc_alloc_mb``/``bottlenecks`` totals in
+    the engine's stacked node-major ``[2N]`` pool layout, every f32
+    accumulation mirrored step for step.
+
+    The routing decision calls the registered policy function with numpy
+    float32 inputs — the same pure function the torch engine runs — so
+    any policy added via ``@register_routing`` runs here unchanged.  With
+    ``autoscale``, every full epoch of ``epoch_events`` invocations ends by
+    re-splitting each KiSS node from its observed per-class pressure
+    (``WarmPool.resize``) and — when node scaling is on — spawning or
+    retiring one node from the cluster-wide drop fraction, with every
+    scalar step mirrored through float32 so the torch engine's decisions
+    are reproduced bit-for-bit.
+    """
+    n = cfg.n_nodes
+    caps = cfg.pool_caps()
+    rz_on = cfg.resize_policy is not None
+    pools = [[WarmPool(PoolConfig(caps[i, k], cfg.policy, cfg.max_slots,
+                                  resize_policy=cfg.resize_policy,
+                                  resize_min_mb=cfg.resize_min_mb))
+              for k in (0, 1)] for i in range(n)]
+
+    def _vertical() -> dict:
+        """Per-pool vertical-scaling totals in the engine's stacked
+        ``[2N]`` (node-major) pool layout — f32 values bit-identical to
+        the torch engine's accumulators."""
+        flat = [pools[j][k] for j in range(n) for k in (0, 1)]
+        return {"acc_used_mb": np.array(
+                    [np.float32(p.acc_used) for p in flat], np.float32),
+                "acc_alloc_mb": np.array(
+                    [np.float32(p.acc_alloc) for p in flat], np.float32),
+                "bottlenecks": np.array(
+                    [p.bneck for p in flat], np.int64)}
+    h1, h2 = route_hashes(trace.func_id, n)
+    unified = np.asarray(cfg.unified, bool)
+    cap_f32 = caps.astype(np.float32)
+    nodes_idx = np.arange(n)
+    sink = ClassMetrics()   # per-node metrics are derived from the outputs
+    node_out = np.empty(len(trace), np.int32)
+    outcome_out = np.empty(len(trace), np.int32)
+    # routing inputs precomputed per size class (loop-invariant between
+    # re-splits; refreshed by the autoscaler below when capacities move)
+    tgt_by_cls = [np.where(unified, 0, c) for c in (0, 1)]
+    cap_by_cls = [cap_f32[nodes_idx, t] for t in tgt_by_cls]
+    spec = ROUTING.spec(cfg.routing)
+    rtt = np.float32(cfg.cloud_rtt_s)
+    ccp = np.float32(cfg.cloud_cold_prob)
+    up_mask = recover = None
+    if failures is not None:
+        up_mask, recover = failures.masks(trace.t, n)
+    all_up = np.ones(n, bool)
+    invalidated = np.zeros(n, np.int64)
+    tel = None
+    inv_seen = 0
+    if telemetry is not None:
+        tel = _tel_acc_ref(-(-len(trace) // telemetry), n)
+    # chain accounting twin: one f32 latency row per chain + a junk row,
+    # every update through float32 in event order (see ChainPlan)
+    no_slack, no_stage = np.float32(np.inf), np.int32(-1)
+    if chains is not None:
+        if chain_cold is None:
+            raise ValueError("chains accounting needs the pre-drawn "
+                             "chain_cold array (cloud_cold_draws)")
+        ch_lat = np.zeros(chains.n_chains + 1, np.float32)
+        ch_dropped = np.zeros(chains.n_chains + 1, bool)
+        ch_done = np.zeros(chains.n_chains + 1, bool)
+        ch_missed = np.zeros(chains.n_chains + 1, bool)
+
+    def tel_event(i: int, up_cnt: int, act_cnt: int) -> None:
+        """Mirror of the engine's ``_tel_event``: scatter-add the counts,
+        last-write-win the window-end snapshots (``free_mb`` as one f32
+        add per node, exactly like ``pools.free.reshape(n, 2).sum``)."""
+        nonlocal inv_seen
+        w = i // telemetry
+        tel["counts"][w, int(trace.cls[i]), int(outcome_out[i])] += 1
+        for j in range(n):
+            tel["free_mb"][w, j] = (np.float32(pools[j][0].free_mb)
+                                    + np.float32(pools[j][1].free_mb))
+            tel["occupancy"][w, j] = (len(pools[j][0].containers)
+                                      + len(pools[j][1].containers))
+        tot = int(invalidated.sum())
+        tel["invalidated"][w] += tot - inv_seen
+        inv_seen = tot
+        tel["nodes_up"][w] = up_cnt
+        tel["nodes_active"][w] = act_cnt
+
+    def run_event(i: int, eff_up: np.ndarray) -> tuple[int, int]:
+        # recovery first: a node coming back up re-joins with empty pools
+        if recover is not None and recover[i].any():
+            for j in np.nonzero(recover[i])[0]:
+                invalidated[j] += (pools[j][0].invalidate()
+                                   + pools[j][1].invalidate())
+        cls = int(trace.cls[i])
+        tgt = tgt_by_cls[cls]
+        # only load-sensitive policies read pool occupancy; skip the
+        # O(n_nodes) per-event scan for the others (spec.needs_free)
+        free_t = np.fromiter(
+            (pools[j][tgt[j]].free_mb for j in range(n)), np.float32,
+            n) if spec.needs_free else None
+        if chains is not None:
+            row = int(chains.cid[i])
+            cslack = np.float32(chains.deadline[row] - ch_lat[row])
+            cstage = np.int32(chains.stage[i])
+        else:
+            cslack, cstage = no_slack, no_stage
+        ctx = RouteCtx(
+            h1=np.int32(h1[i]), h2=np.int32(h2[i]),
+            size=np.float32(trace.size_mb[i]), cls=np.int32(cls),
+            warm=np.float32(trace.warm_dur[i]),
+            cold=np.float32(trace.cold_dur[i]),
+            free=free_t, cap=cap_by_cls[cls],
+            cloud_rtt_s=rtt, cloud_cold_prob=ccp, node_up=eff_up,
+            chain_slack=cslack, chain_stage=cstage)
+        node = int(spec.fn(np, ctx))
+        if eff_up[node]:
+            out = _OUT_CODE[pools[node][int(tgt[node])].access(
+                float(trace.t[i]), int(trace.func_id[i]),
+                float(trace.size_mb[i]),
+                float(trace.warm_dur[i]), float(trace.cold_dur[i]), sink)]
+        else:
+            out = DROP          # routed to a dead node: offload, pools
+        node_out[i] = node      # untouched (they are frozen/absent)
+        outcome_out[i] = out
+        if chains is not None:
+            # mirror of the engine's _chain_event: stage price in f32,
+            # accumulate, flag done/missed at the chain's final stage
+            w32 = np.float32(trace.warm_dur[i])
+            c32 = np.float32(trace.cold_dur[i])
+            if out == HIT:
+                stage_lat = w32
+            elif out == MISS:
+                stage_lat = c32
+            else:
+                stage_lat = np.float32(rtt + (c32 if chain_cold[i] else w32))
+            fin = np.float32(ch_lat[row] + stage_lat)
+            ch_lat[row] = fin
+            ch_dropped[row] = bool(ch_dropped[row]) or out == DROP
+            if chains.last[i]:
+                ch_done[row] = True
+                miss = bool(ch_dropped[row]) or bool(
+                    fin > chains.deadline[row])
+                ch_missed[row] = bool(ch_missed[row]) or miss
+                if tel is not None and miss:
+                    tel["chain_miss"][i // telemetry] += 1
+        return node, out
+
+    def chain_np() -> dict:
+        """Junk row sliced off — the engine's ``_chain_np`` twin."""
+        c = chains.n_chains
+        return {"latency": ch_lat[:c].copy(),
+                "dropped": ch_dropped[:c].copy(),
+                "done": ch_done[:c].copy(),
+                "missed": ch_missed[:c].copy()}
+
+    if autoscale is None:
+        for i in range(len(trace)):
+            eu = all_up if up_mask is None else up_mask[i]
+            run_event(i, eu)
+            if tel is not None:
+                tel_event(i, int(eu.sum()) if up_mask is not None else n, n)
+        if failures is None and tel is None and chains is None \
+                and not rz_on:
+            return node_out, outcome_out
+        extras = {} if tel is None else {"telemetry": tel}
+        if failures is not None:
+            extras.update(invalidated=invalidated, node_up=up_mask)
+        if chains is not None:
+            extras["chains"] = chain_np()
+        if rz_on:
+            extras["vertical"] = _vertical()
+        return node_out, outcome_out, extras
+
+    # -- autoscaled path: epoch loop with float32-mirrored re-splitting ----
+    f32 = np.float32
+    e = autoscale.epoch_events
+    mn, mx, gain = (f32(autoscale.min_frac), f32(autoscale.max_frac),
+                    f32(autoscale.gain))
+    # node-scaling thresholds as data: +/-inf when disabled, so the same
+    # decision arithmetic runs (and never fires) — mirroring the engine
+    scaled = autoscale.node_scaled
+    spawn_th = f32(autoscale.spawn_drop_frac) if scaled else f32(np.inf)
+    retire_th = f32(autoscale.retire_drop_frac) if scaled else f32(-np.inf)
+    active = np.zeros(n, bool)
+    active[:autoscale.init_active if autoscale.init_active is not None
+           else n] = True
+    frac = np.asarray(cfg.small_frac, np.float32)
+    node_mb = np.asarray(cfg.node_mb, np.float32)
+    press = np.zeros((n, 2), np.float32)   # exact small-integer counts
+    dropw = 0
+    fracs_out: list[np.ndarray] = []
+    actives_out: list[np.ndarray] = []
+    for i in range(len(trace)):
+        eff = (active if up_mask is None
+               else up_mask[i] & active)
+        node, out = run_event(i, eff)
+        if out == MISS:
+            press[node, int(trace.cls[i])] += 1.0
+        elif out == DROP:
+            press[node, int(trace.cls[i])] += 2.0
+            dropw += 1
+        if tel is not None:
+            tel_event(i, n if up_mask is None else int(up_mask[i].sum()),
+                      int(active.sum()))
+        if (i + 1) % e:
+            continue
+        # full epoch boundary: pressure -> split delta -> resize, every
+        # scalar op through f32 exactly as the torch engine computes it
+        press_s, press_l = press[:, 0], press[:, 1]
+        tot = press_s + press_l
+        delta = np.where(tot > 0,
+                         gain * (press_s - press_l)
+                         / np.where(tot > 0, tot, f32(1.0)), f32(0.0))
+        cand = np.minimum(mx, np.maximum(frac + delta, mn))
+        frac = np.where(unified, frac, cand).astype(np.float32)
+        cap_s = node_mb * frac
+        cap_l = node_mb * (f32(1.0) - frac)
+        now = float(trace.t[i])
+        for j in range(n):
+            if unified[j]:
+                continue
+            pools[j][0].resize(now, float(cap_s[j]))
+            pools[j][1].resize(now, float(cap_l[j]))
+            cap_f32[j, 0], cap_f32[j, 1] = cap_s[j], cap_l[j]
+        cap_by_cls = [cap_f32[nodes_idx, t] for t in tgt_by_cls]
+        # node add/remove from the cluster-wide drop fraction (post-resize
+        # residency decides "emptiest"; at most one node moves per epoch)
+        drop_frac = f32(dropw) / np.maximum(f32(e), f32(1.0))
+        n_active = int(active.sum())
+        if drop_frac > spawn_th and n_active < n:
+            active[int(np.argmax(~active))] = True
+        elif drop_frac < retire_th and n_active > 1:
+            used_n = np.array(
+                [f32(cap_f32[j, 0] - f32(pools[j][0].free_mb))
+                 + f32(cap_f32[j, 1] - f32(pools[j][1].free_mb))
+                 for j in range(n)], np.float32)
+            j = int(np.argmin(np.where(active, used_n, f32(np.inf))))
+            active[j] = False
+            invalidated[j] += (pools[j][0].invalidate()
+                               + pools[j][1].invalidate())
+        if tel is not None:
+            # retirement invalidations land in the epoch's last window —
+            # the window of event i, mirroring the engine's w_end rule
+            tot = int(invalidated.sum())
+            tel["invalidated"][i // telemetry] += tot - inv_seen
+            inv_seen = tot
+        press[:] = 0.0
+        dropw = 0
+        fracs_out.append(frac.copy())
+        actives_out.append(active.copy())
+    if len(trace) % e:   # trailing partial epoch: no re-split (see Autoscale)
+        fracs_out.append(frac.copy())
+        actives_out.append(active.copy())
+    fracs = (np.stack(fracs_out) if fracs_out
+             else np.zeros((0, n), np.float32))
+    actives = (np.stack(actives_out) if actives_out
+               else np.zeros((0, n), bool))
+    extras = {"invalidated": invalidated, "node_up": up_mask,
+              "active": actives}
+    if tel is not None:
+        extras["telemetry"] = tel
+    if chains is not None:
+        extras["chains"] = chain_np()
+    if rz_on:
+        extras["vertical"] = _vertical()
+    return node_out, outcome_out, fracs, extras
+
+
+# --------------------------------------------------------------------------
+# historical single-knob API
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ContinuumConfig:
+    n_nodes: int = 4
+    node_mb: float = 4 * 1024.0
+    policy: Policy = Policy.LRU
+    kiss: bool = True                 # False => unified baseline nodes
+    small_frac: float = 0.8
+    cloud_rtt_s: float = 0.25         # edge->cloud round trip
+    cloud_cold_prob: float = 0.05     # cloud has big warm pools
+
+    def as_cluster(self, routing: RoutingPolicy = RoutingPolicy.STICKY,
+                   max_slots: int = 1024) -> ClusterConfig:
+        return ClusterConfig.homogeneous(
+            self.n_nodes, self.node_mb, kiss=self.kiss,
+            small_frac=self.small_frac, policy=self.policy, routing=routing,
+            cloud_rtt_s=self.cloud_rtt_s,
+            cloud_cold_prob=self.cloud_cold_prob, max_slots=max_slots)
+
+
 @dataclasses.dataclass
 class ContinuumResult:
     edge: ClassMetrics
@@ -345,3 +699,26 @@ class ContinuumResult:
                 "p50_s": float(np.percentile(lat, 50)),
                 "p95_s": float(np.percentile(lat, 95)),
                 "p99_s": float(np.percentile(lat, 99))}
+
+
+@deprecated("repro_torch.sim.simulate(Scenario.cluster(...), engine='ref')")
+def simulate_continuum(cfg: ContinuumConfig, trace: Trace,
+                       rng_seed: int = 0) -> ContinuumResult:
+    """Sticky-routed homogeneous continuum: a thin wrapper over the
+    cluster oracle (pool capacities rounded through f32, ``max_slots``
+    enforced), as the reference's."""
+    node, outcome = cluster_outcomes_ref(cfg.as_cluster(), trace)
+    cloud_cold = cloud_cold_draws(len(trace), cfg.cloud_cold_prob, rng_seed)
+    latencies = continuum_latencies(trace, outcome, cloud_cold,
+                                    cfg.cloud_rtt_s)
+    warm = np.asarray(trace.warm_dur, np.float64)
+    cold = np.asarray(trace.cold_dur, np.float64)
+    metrics = ClassMetrics(
+        hits=int((outcome == HIT).sum()),
+        misses=int((outcome == MISS).sum()),
+        drops=int((outcome == DROP).sum()),
+        exec_time=float(warm[outcome == HIT].sum()
+                        + cold[outcome == MISS].sum()))
+    return ContinuumResult(edge=metrics,
+                           cloud_offloads=int((outcome == DROP).sum()),
+                           latencies=latencies)

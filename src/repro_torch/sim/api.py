@@ -1,47 +1,57 @@
 """The front door: ``simulate(scenario, trace)`` and ``sweep`` (port of
-``repro.sim.api``).
+``repro.sim.api``), with two engines:
 
-Both run on the CUDA device unless the caller passes ``device="cpu"``;
-with no card and no ``device`` they raise.  The step mode is one of
-``STEP_MODES`` (``"gather"``, ``"vmap"``, ``"fused"``), all bitwise
-equal; ``"fused"`` runs the hand-written CUDA kernel of
-``repro_torch.kernels.pool_step`` on a CUDA device and its plain torch
-version on the CPU.  A scenario with ``failures``, ``autoscale``,
-``telemetry``, ``chains`` or ``resize`` and a run with ``chunk_events``
-give bitwise the reference's results, one run or a sweep's lane.  Not
-ported yet: the numpy oracle ``engine="ref"`` (ROADMAP A14) and sweeps
-sharded across devices (``devices`` above 1, A13).
+* ``engine="torch"`` (the default) runs on the CUDA device unless the
+  caller passes ``device="cpu"``; with no card and no ``device`` it
+  raises.  The step mode is one of ``STEP_MODES`` (``"gather"``,
+  ``"vmap"``, ``"fused"``), all bitwise equal; ``"fused"`` runs the
+  hand-written CUDA kernel of ``repro_torch.kernels.pool_step`` on a
+  CUDA device and its plain torch version on the CPU.
+* ``engine="ref"`` is the sequential numpy oracle
+  (``repro_torch.core.continuum.cluster_outcomes_ref``), one event at a
+  time on the host: the ground truth the torch engine is held to.  It
+  needs no card; ``mode``, ``chunk_events``, ``devices`` and ``device``
+  are validated and then ignored, as the reference ignores them.
+
+A scenario with ``failures``, ``autoscale``, ``telemetry``, ``chains``
+or ``resize`` and a run with ``chunk_events`` give bitwise the
+reference's results on either engine, one run or a sweep's lane.  Not
+ported yet: sweeps sharded across devices (``devices`` above 1, A13).
 """
 from __future__ import annotations
 
 from typing import Iterable, Sequence
 
 import numpy as np
+import torch
 
 from .._device import resolve_device
 from ..cluster.engine import (_run_group, _run_group_autoscale,
-                              check_chunk_events, check_devices,
-                              check_step_mode)
+                              _simulate_cluster_autoscale_ref,
+                              _simulate_cluster_failures_ref,
+                              _simulate_cluster_ref, check_chunk_events,
+                              check_devices, check_step_mode)
 from ..core.types import Trace
 from .chains import metrics_from_arrays
 from .result import Result
 from .scenario import Scenario
 from .telemetry import series_from_arrays, trace_fingerprint
 
-_ENGINES = ("torch",)
+_ENGINES = ("torch", "ref")
 
 
 def _check_engine(engine: str) -> None:
-    """Accept the port's engine and the reference's oracle name, which
-    the callers refuse after their validation (ROADMAP A14)."""
-    if engine not in _ENGINES + ("ref",):
+    if engine not in _ENGINES:
         raise ValueError(f"engine must be one of {_ENGINES}, got {engine!r}")
 
 
-def _no_oracle() -> NotImplementedError:
-    return NotImplementedError(
-        "engine='ref' (the numpy oracle) is not in the PyTorch port "
-        "yet (ROADMAP A14)")
+def _check_host_device(device) -> None:
+    """The oracle runs on the host: ``device`` is validated as a device
+    spelling and never resolved, so no card is needed."""
+    if device is not None and torch.device(device).type not in ("cuda",
+                                                                "cpu"):
+        raise ValueError(f"device must be a CUDA or CPU device, got "
+                         f"{device!r}")
 
 
 def _check_chunkable(scenario: Scenario, chunk_events) -> int | None:
@@ -117,15 +127,46 @@ def simulate(scenario: Scenario, trace: Trace, *, engine: str = "torch",
     one with ``chains``, on a chained trace, ``Result.chains``
     (``chain_metrics()``), and one with ``resize`` ``Result.vertical``
     (``utilization_ratio``, ``bottleneck_events``).  ``device`` is where
-    the run happens:
-    ``None`` means ``"cuda"``."""
-    if engine == "ref":
-        raise _no_oracle()
+    the run happens: ``None`` means ``"cuda"``.  ``engine="ref"`` runs
+    the numpy oracle on the host instead, with bitwise the same
+    :class:`Result` (``run_info`` aside); it validates ``mode``,
+    ``chunk_events`` and ``device`` and ignores them."""
     _check_engine(engine)
     check_step_mode(mode)
     chunk = _check_chunkable(scenario, chunk_events)
+    if engine == "ref":
+        _check_host_device(device)
+        return _simulate_ref(scenario, trace, rng_seed)
     return sweep(trace, [scenario], engine=engine, mode=mode,
                  rng_seed=rng_seed, chunk_events=chunk, device=device)[0]
+
+
+def _simulate_ref(scenario: Scenario, trace: Trace, rng_seed: int) -> Result:
+    """One scenario through the numpy oracle, dispatched as the
+    reference's ``simulate`` dispatches ``engine="ref"``; ``run_info``
+    records no mode, chunking or device count, and the host as the
+    device."""
+    cfg = scenario.to_cluster_config()
+    asc, fails = scenario.autoscale, scenario.failures
+    telw = _telw(scenario)
+    plan = _chain_plan(scenario, trace)
+    info = {"engine": "ref", "mode": None, "chunk_events": None,
+            "devices": None, "device": "cpu", "rng_seed": rng_seed,
+            "trace_fingerprint": trace_fingerprint(trace)}
+    fracs = None
+    if asc is not None:
+        raw, fracs, extras = _simulate_cluster_autoscale_ref(
+            cfg, asc, trace, rng_seed, failures=fails, telemetry=telw,
+            chains=plan)
+    elif fails is not None:
+        raw, extras = _simulate_cluster_failures_ref(
+            cfg, fails, trace, rng_seed, telemetry=telw, chains=plan)
+    else:
+        out = _simulate_cluster_ref(cfg, trace, rng_seed, telemetry=telw,
+                                    chains=plan)
+        bare = telw is None and plan is None and scenario.resize is None
+        raw, extras = (out, {}) if bare else out
+    return _wrap(scenario, trace, raw, extras, fracs, telw, info, plan)
 
 
 def sweep(trace: Trace, scenarios: Iterable[Scenario], *,
@@ -155,10 +196,12 @@ def sweep(trace: Trace, scenarios: Iterable[Scenario], *,
     ``devices`` is validated as the reference's: ``None`` or 1 (or
     ``"all"`` with one visible device) run here; a count above 1 raises
     ``NotImplementedError`` (sharded sweeps, ROADMAP A13).
-    ``engine="ref"`` raises ``NotImplementedError`` after the same
-    validation (the numpy oracle, A14).  ``device`` is where the run
-    happens: ``None`` means ``"cuda"``, and without a card it raises
-    (pass ``device="cpu"``)."""
+    ``engine="ref"`` runs :func:`simulate` with the numpy oracle for
+    each scenario in input order, after the same validation (``mode``,
+    ``chunk_events``, ``devices`` and ``device`` are then ignored, as
+    the reference ignores them).  ``device`` is where the run happens:
+    ``None`` means ``"cuda"``, and without a card it raises (pass
+    ``device="cpu"``)."""
     _check_engine(engine)
     scenarios = list(scenarios)
     if not scenarios:
@@ -178,7 +221,9 @@ def sweep(trace: Trace, scenarios: Iterable[Scenario], *,
         chunk = _check_chunkable(s, chunk_events)
     dev_count = check_devices(devices)
     if engine == "ref":
-        raise _no_oracle()
+        _check_host_device(device)
+        return [simulate(s, trace, engine="ref", rng_seed=rng_seed)
+                for s in scenarios]
     plans = [_chain_plan(s, trace) for s in scenarios]
     dev = resolve_device(device)
     groups: dict[tuple, list[int]] = {}

@@ -148,6 +148,29 @@ def edge_trace(seed: int = 0, duration_s: float = 4 * 3600.0,
                                   zipf_a=1.15))
 
 
+def bursty_trace(seed: int = 0, duration_s: float = 2 * 3600.0) -> Trace:
+    """Traffic spikes: 3x rate inside 20% duty-cycle bursts."""
+    return synthesize(TraceConfig(seed=seed, duration_s=duration_s,
+                                  burst_rate_mult=3.0, burst_fraction=0.2))
+
+
+def steady_trace(seed: int = 0, duration_s: float = 2 * 3600.0) -> Trace:
+    """No diurnal modulation, no bursts — steady-state baseline."""
+    return synthesize(TraceConfig(seed=seed, duration_s=duration_s,
+                                  diurnal_depth=0.0))
+
+
+def stress_trace(seed: int = 0, duration_s: float = 2 * 3600.0,
+                 rps: float = 600.0) -> Trace:
+    """§6.5 stress test: a 2-hour trace at millions-of-invocations scale.
+    ``rps=600`` gives ~4.3M invocations over 2 h, matching the paper's
+    '4-5 million invocations'.  Use a smaller ``rps`` for CI."""
+    return synthesize(TraceConfig(
+        seed=seed, duration_s=duration_s,
+        n_small_funcs=400, n_large_funcs=100,
+        small_rps=rps * 5 / 6, large_rps=rps / 6,
+        burst_rate_mult=2.0, burst_fraction=0.15))
+
 
 #: ``edge_trace(seed=0, duration_s=3600)`` (the README quickstart's
 #: trace: 11,215 invocations, 140 functions) as the reference draws it

@@ -1,14 +1,14 @@
 """The port's public names against the reference's, on the CPU.
 
-For ``repro.sim``, ``repro.cluster`` and ``repro.core``: every public
-name of the reference exists in the port unless it belongs to a slice
-still to come (``PENDING``, each with its ROADMAP id, so that a slice
-that lands shrinks the list); a function keeps the reference's
-positional parameters, the port adding at most a trailing ``device``;
-a class keeps the reference's public attributes (methods, class
-methods, properties), and so does each policy registry.  The reference
-is reached through a fixture, so the file also collects where JAX is
-absent.
+For ``repro.sim``, ``repro.cluster``, ``repro.core`` and
+``repro.workloads``: every public name of the reference exists in the
+port unless it belongs to a slice still to come (``PENDING``, each with
+its ROADMAP id, so that a slice that lands shrinks the list); a
+function keeps the reference's positional parameters, the port adding
+at most a trailing ``device``; a class keeps the reference's public
+attributes (methods, class methods, properties), and so does each
+policy registry.  The reference is reached through a fixture, so the
+file also collects where JAX is absent.
 """
 import importlib
 import inspect
@@ -18,26 +18,10 @@ import pytest
 #: Public names of the reference that the port does not have yet, with
 #: the ROADMAP item that ports them.
 PENDING = {
-    "cluster": {
-        "cluster_outcomes_ref": "A14",     # the numpy oracle
-        "simulate_cluster_jax": "A14",     # deprecated shims
-        "simulate_cluster_ref": "A14",
-        "sweep_cluster": "A14",
-    },
-    "core": {
-        "WorkloadProfile": "A14",          # core/analyzer.py
-        "analyze": "A14",
-        "classify": "A14",
-        "cluster_outcomes_ref": "A14",     # the numpy oracle
-        "metrics_to_result": "A14",        # deprecated shims
-        "simulate_baseline": "A14",
-        "simulate_baseline_jax": "A14",
-        "simulate_kiss": "A14",
-        "simulate_kiss_jax": "A14",
-        "sweep_baseline": "A14",
-        "sweep_kiss": "A14",
-    },
+    "cluster": {},
+    "core": {},
     "sim": {},
+    "workloads": {},
 }
 PACKAGES = tuple(PENDING)
 

@@ -290,12 +290,17 @@ def test_unported_scenario_knobs_raise(knob):
         T.Scenario.kiss(1024.0, **{knob: object()})
 
 
-def test_unported_engine_and_chunking_raise(qtrace):
-    """``engine="ref"`` still raises; ``chunk_events`` is ported (A6), so
-    only a bad value raises."""
+def test_unported_engine_and_chunking_raise(ref_runs, qtrace, port_run):
+    """Every engine is ported: ``engine="ref"`` (A14) gives the
+    reference's result and the torch engine's, bitwise, with the ref run
+    info; ``chunk_events`` is ported (A6), so only a bad value raises, as
+    does an unknown engine or mode."""
     tr, scn = PortTrace(*qtrace), scenario(T)
-    with pytest.raises(NotImplementedError, match="A14"):
-        T.simulate(scn, tr, engine="ref", device="cpu")
+    p = T.simulate(scn, tr, engine="ref", device="cpu")
+    assert_bitwise(ref_runs("gather", "sticky", "lru"), p, "ref")
+    assert_bitwise(port_run, p, "ref vs torch")
+    assert (p.run_info["engine"], p.run_info["mode"],
+            p.run_info["chunk_events"]) == ("ref", None, None)
     with pytest.raises(ValueError, match="chunk_events"):
         T.simulate(scn, tr, chunk_events=0, device="cpu")
     with pytest.raises(ValueError, match="engine"):

@@ -11,11 +11,12 @@ and to ``simulate`` of its scenario (node, outcome, every ``summary()``
 key, the window arrays, ``node_up`` and ``invalidated``).  Also a sweep
 that mixes groups (results in input order), the engine's sweep entry
 points with the reference's return shapes, the run info and manifest,
-the refusals (``_stack_configs``, ``check_devices``, ``engine="ref"``,
-``devices=2``, no device without CUDA) and the JAX side of
-``chip_smoke.GOLDEN_SWEEP`` on a sub-grid.  Autoscaled, chain and resize
-groups, the block runner with lanes and the lane spelling of the routing
-bodies are in ``tests/test_torch_sweep_shapes.py``.  The reference (and
+the refusals (``_stack_configs``, ``check_devices``, ``devices=2``, no
+device without CUDA), ``engine="ref"`` after the same validation, and
+the JAX side of ``chip_smoke.GOLDEN_SWEEP`` on a sub-grid.  Autoscaled,
+chain and resize groups, the block runner with lanes and the lane
+spelling of the routing bodies are in
+``tests/test_torch_sweep_shapes.py``.  The reference (and
 ``conftest``) is reached through fixtures, so the file also collects
 where JAX is absent.
 """
@@ -314,13 +315,18 @@ def test_sweep_refusals(qtrace):
         T.sweep(tr, [scn, asc], chunk_events=10, device="cpu")
     with pytest.raises(ValueError, match="positive int"):
         T.sweep(tr, [scn], devices=0, device="cpu")
-    # A14: the oracle raises after the same validation
+    # A14: the oracle validates as the torch engine does, then runs
     with pytest.raises(ValueError, match="non-empty"):
         T.sweep(tr, [], engine="ref", device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        T.sweep(tr, [scn], engine="ref", device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        T.simulate(scn, tr, engine="ref", device="cpu")
+    with pytest.raises(ValueError, match="mode must be one of"):
+        T.sweep(tr, [scn], engine="ref", mode="scatter")
+    with pytest.raises(NotImplementedError, match="A13"):
+        T.sweep(tr, [scn], engine="ref", devices=2)
+    got = T.sweep(tr, [scn, scn], engine="ref", device="cpu")
+    want = T.simulate(scn, tr, device="cpu")
+    for p in got + [T.simulate(scn, tr, engine="ref")]:
+        assert_bitwise(want, p, "ref")
+        assert p.run_info["engine"] == "ref"
     # A13: sharded sweeps
     with pytest.raises(NotImplementedError, match="A13"):
         T.sweep(tr, [scn], devices=2, device="cpu")
