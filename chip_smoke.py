@@ -19,9 +19,12 @@ Phases, each printing its own lines:
    timed per launch with CUDA events, and alone by the profiler, which
    must see its one kernel, ``evict_place_kernel``;
 4. kernels B3 (flash attention) and B2 (decode attention) against their
-   plain versions at the serving path's shapes (starcoder2-3b, glm4-9b
-   and zamba2-1.2b's shared MHA block), kimi-k2's (head dim 112, a
-   group of 8), long shapes and ragged ones, in
+   plain versions at the serving path's shapes (starcoder2-3b, glm4-9b,
+   zamba2-1.2b's shared MHA block, granite-moe-1b-a400m and qwen2-vl-7b's
+   group of 7), kimi-k2's (head dim 112, a group of 8), whisper-medium's
+   non-causal encoder (1,500 frames) and cross-attention (32 queries and
+   1 against 1,500 frames) and its decoder cache, long shapes and ragged
+   ones, in
    bf16 (tolerance 2e-2) and f32 (2e-5), absolute and relative, the JAX
    reference's own ``TOL``; the profiler must see the tensor-core kernels
    (``flash_wgmma_kernel``, ``decode_mma_kernel``) run in bf16 and the
@@ -115,13 +118,14 @@ Phases, each printing its own lines:
    the static, the autoscaled and the resize runner, for telemetry and
    chains on and for sweeps of 1, 8 and 40 lanes, with B1's kernel
    records in ``fused`` seen at most once an event;
-7. the serving path at full width: the four models of
-   ``launch.serve.default_registry(4)``, starcoder2-3b, rwkv6-7b,
-   zamba2-1.2b and glm4-9b (random bf16 weights from a seed), behind one
-   ``KissServer`` on the card, 16 requests through ``launch.serve.run``,
-   with B2-B5's launch counts zeroed just before and read just after;
-   they must equal the layers of each kind times the prefills and decode
-   steps the requests ask for;
+7. the serving path at full width: ``launch.serve.default_registry()``'s
+   models but qwen2.5-32b (whose weights cannot share the card),
+   starcoder2-3b, rwkv6-7b, zamba2-1.2b, glm4-9b and granite-moe-1b-a400m
+   (random bf16 weights from a seed), behind one ``KissServer`` on the
+   card, 16 requests through ``launch.serve.run``, with B2-B5's launch
+   counts zeroed just before and read just after; they must equal the
+   layers of each kind times the prefills and decode steps the requests
+   ask for;
 8. eviction: a ``UnifiedServer`` whose pool holds one of starcoder2-3b
    and glm4-9b at a time; after each eviction the device memory
    allocated must fall to the resident model's weights (within
@@ -133,8 +137,21 @@ Phases, each printing its own lines:
    also with its window cut to 16 so that the ring and the window bind,
    and for zamba2-1.2b and rwkv6-7b a control that decodes the same
    tokens with the recurrent state zeroed before each step, which must
-   miss;
-10. one line of seconds a phase and the total, one JSON line of kernel
+   miss; granite-moe-1b-a400m against the same prefill and decode steps
+   in f32 plain torch (``path_logits``: an MoE layer routes each call's
+   tokens as one group), its control one expert a token;
+10. the families (``families_phase``), one container at a time:
+   qwen2-vl-7b and whisper-medium at full width and kimi-k2-1t-a32b cut
+   to ``KIMI_LAYERS`` layer; each a cold start, a ``generate`` of a
+   32-token prefill and 8 decode steps whose B2/B3 launches (counts
+   zeroed just before, read just after) must equal
+   ``family_launches``, its peak memory, and a logits check with a
+   control that must miss: qwen2-vl with stub vision patches and 3-D
+   M-RoPE positions against the f32 plain forward (control: 1-D
+   positions), whisper with stub audio frames against the f32 plain
+   ``decode_train`` (control: a causal cross-attention), kimi-k2 against
+   its bf16 plain prefill and decode steps (control: no shared expert);
+11. one line of seconds a phase and the total, one JSON line of kernel
    measurements, one of path numbers, then ``{"ok": true, ...}``.
 
 Any mismatch or fault exits non-zero; no phase's failure is caught.
@@ -710,6 +727,16 @@ FLASH_SHAPES = {
     # kimi-k2-1t-a32b's attention (H = 64 over KV = 8, D = 112) at a
     # 32-token prefill
     "kimi-d112": (2, 32, 32, 64, 8, 112, True, None, 0),
+    # granite-moe-1b-a400m (H = 16 over KV = 8, D = 64) and qwen2-vl-7b
+    # (a GQA group of 7) at the serving prefill; whisper-medium's encoder
+    # over its 1,500 frames and its cross-attention at the prefill (32
+    # queries) and at each decode step (1), all non-causal, against a
+    # ragged last kv tile
+    "path-granite-moe": (2, 32, 32, 16, 8, 64, True, None, 0),
+    "path-qwen2vl": (2, 32, 32, 28, 4, 128, True, None, 0),
+    "whisper-enc": (2, 1500, 1500, 16, 16, 64, False, None, 0),
+    "whisper-x32": (2, 32, 1500, 16, 16, 64, False, None, 0),
+    "whisper-x1": (2, 1, 1500, 16, 16, 64, False, None, 0),
 }
 #: name: (B, S, H, KV, D, window, fill, cur).  "serving" fills slots
 #: 0..cur, as the serving path's cache is after a 32-token prefill and a
@@ -724,6 +751,10 @@ DECODE_SHAPES = {
     "ragged-holes": (3, 1000, 24, 2, 128, None, "holes", 999),
     "ragged-d64": (2, 300, 12, 2, 64, 100, "holes", 250),
     "kimi-d112": (2, 4096, 64, 8, 112, None, "serving", 35),
+    "path-granite-moe": (2, 4096, 16, 8, 64, None, "serving", 35),
+    "path-qwen2vl": (2, 4096, 28, 4, 128, None, "serving", 35),
+    # whisper's decoder self-attention: 448 target positions, MHA
+    "path-whisper": (2, 448, 16, 16, 64, None, "serving", 35),
 }
 
 
@@ -2458,18 +2489,21 @@ def oracle_phase(dev, trace, kept: dict) -> dict:
                         "suggested_small_frac": prof.suggested_small_frac}}
 
 
-#: ``launch.serve.default_registry(4)``'s models, at full width.
-SERVE_MODELS = ("starcoder2-3b", "rwkv6-7b", "zamba2-1.2b", "glm4-9b")
+#: ``launch.serve.default_registry(6)``'s models at full width, in its
+#: order, but qwen2.5-32b, whose ~65 GB of bf16 weights cannot share the
+#: card with the others.
+SERVE_MODELS = ("starcoder2-3b", "rwkv6-7b", "zamba2-1.2b", "glm4-9b",
+                "granite-moe-1b-a400m")
 SERVE_REQUESTS = 16
 #: The models of the eviction phase.
 EVICT_MODELS = ("starcoder2-3b", "glm4-9b")
 SERVE_CKW = dict(max_batch=2, max_len=4096)
-#: The KissServer's budget: the threshold puts starcoder2-3b and
-#: zamba2-1.2b in the small class and rwkv6-7b and glm4-9b in the large
-#: one, and by the f32 estimates each pool holds both of its models
-#: (12,722 + 6,186 = 18,909 MB of 24,000; 30,066 + 37,599 = 67,665 MB of
-#: 72,000; pinned by tests/test_torch_serving.py).
-SERVE_BUDGET = dict(total_mb=96_000, small_frac=0.25, threshold_mb=20_000)
+#: The KissServer's budget: the threshold puts starcoder2-3b, zamba2-1.2b
+#: and granite-moe-1b-a400m in the small class and rwkv6-7b and glm4-9b
+#: in the large one, and by the f32 estimates each pool holds all of its
+#: models (12,722 + 6,186 + 5,540 = 24,449 MB of 25,920; 30,066 + 37,599
+#: = 67,665 MB of 70,080; pinned by tests/test_torch_serving.py).
+SERVE_BUDGET = dict(total_mb=96_000, small_frac=0.27, threshold_mb=20_000)
 #: How far device memory may sit from the resident model's weights after
 #: an eviction: 64 MB (cuBLAS workspace, small buffers) plus 1 MiB a
 #: weight tensor, since the caching allocator does not split a block it
@@ -2537,10 +2571,10 @@ def expected_launches(registry, reqs, max_batch: int, results):
 
 
 def serving_phase(dev) -> dict:
-    """Full-width starcoder2-3b, rwkv6-7b, zamba2-1.2b and glm4-9b behind
-    one KissServer: ``SERVE_REQUESTS`` requests through
-    ``launch.serve.run``, with B2-B5's counts zeroed just before and read
-    just after."""
+    """Full-width starcoder2-3b, rwkv6-7b, zamba2-1.2b, glm4-9b and
+    granite-moe-1b-a400m behind one KissServer: ``SERVE_REQUESTS``
+    requests through ``launch.serve.run``, with B2-B5's counts zeroed just
+    before and read just after."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -2549,14 +2583,15 @@ def serving_phase(dev) -> dict:
     from repro_torch.launch.serve import (default_registry, run,
                                           synthesize_requests)
     from repro_torch.serving import KissServer
-    check(tuple(default_registry(4)) == SERVE_MODELS,
-          f"default_registry(4) is {list(default_registry(4))}")
+    six = list(default_registry())
+    check(tuple(m for m in six if m != "qwen2.5-32b") == SERVE_MODELS,
+          f"default_registry() is {six}")
     registry = {a: get_config(a) for a in SERVE_MODELS}
     server = KissServer(registry, **SERVE_BUDGET,
                         container_kwargs=dict(SERVE_CKW, device=dev))
-    check([server.size_class(m) for m in SERVE_MODELS] == [0, 1, 0, 1],
-          "starcoder2-3b and zamba2-1.2b must be small, rwkv6-7b and "
-          "glm4-9b large")
+    check([server.size_class(m) for m in SERVE_MODELS] == [0, 1, 0, 1, 0],
+          "starcoder2-3b, zamba2-1.2b and granite-moe-1b-a400m must be "
+          "small, rwkv6-7b and glm4-9b large")
     reqs = synthesize_requests(registry, SERVE_REQUESTS, seed=0)
     asked = {m: sum(r.model_id == m for r in reqs) for m in SERVE_MODELS}
     check(min(asked.values()) > 0, f"a model got no request: {asked}")
@@ -2716,35 +2751,50 @@ def plain_kernels():
     """Every kernel entry point of ``kernels.ops`` replaced by its plain
     version while the block runs (the model modules call them through
     ``ops``), so a forward on the card runs no kernel of the port."""
-    from repro_torch.kernels import flash_attention, ops, ssm_scan, wkv6
-    saved = (ops.flash_attention, ops.ssm_scan, ops.wkv6)
-    ops.flash_attention = flash_attention.flash_attention_plain
-    ops.ssm_scan = ssm_scan.ssm_scan_plain
-    ops.wkv6 = wkv6.wkv6_plain
+    from repro_torch.kernels import (decode_attention, flash_attention, ops,
+                                     ssm_scan, wkv6)
+    names = ("flash_attention", "decode_attention", "ssm_scan", "wkv6")
+    saved = [getattr(ops, n) for n in names]
+    for n, mod in zip(names, (flash_attention, decode_attention, ssm_scan,
+                              wkv6)):
+        setattr(ops, n, getattr(mod, f"{n}_plain"))
     try:
         yield
     finally:
-        ops.flash_attention, ops.ssm_scan, ops.wkv6 = saved
+        for n, fn in zip(names, saved):
+            setattr(ops, n, fn)
 
 
-def plain_forward(cfg, params, tokens, dtype=torch.float32):
+def cast_f32(tree):
+    """A params tree (dicts, lists, ``None``) with every tensor in f32."""
+    if isinstance(tree, dict):
+        return {k: cast_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_f32(v) for v in tree]
+    return None if tree is None else tree.float()
+
+
+def plain_forward(cfg, params, tokens, dtype=torch.float32, *,
+                  positions=None, patches=None):
     """Logits f32 [B, S, V] of the whole sequence with no cache: the
     port's own blocks with every kernel replaced by its plain version, in
     f32 (every weight cast to f32 a layer at a time, the hybrid's shared
     block once) or, with ``dtype=torch.bfloat16``, with the weights as
-    they are."""
+    they are.  ``positions`` default to 0..S-1; ``patches`` (embeddings,
+    positions) are spliced in as a VLM's are."""
     from repro_torch.models import transformer as T
-    from repro_torch.models.layers import embed
 
     def cast(tree):
-        if dtype != torch.float32:
-            return tree
-        return {k: cast(v) if isinstance(v, dict) else v.float()
-                for k, v in tree.items()}
+        return cast_f32(tree) if dtype == torch.float32 else tree
     b, s = tokens.shape
     pos = torch.arange(s, dtype=torch.int32,
-                       device=tokens.device)[None].expand(b, s)
-    x = embed(params["embed"], tokens.long(), dtype)
+                       device=tokens.device)[None].expand(b, s) \
+        if positions is None else positions
+    batch = {"tokens": tokens, "positions": pos}
+    if patches is not None:
+        batch["patch_embeds"], batch["patch_positions"] = patches
+    cfg_x = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
+    x = T._embed_inputs(cfg_x, params, batch)
     shared = cast(params["shared_attn"]) if "shared_attn" in params \
         else None
     with plain_kernels():
@@ -2757,7 +2807,7 @@ def plain_forward(cfg, params, tokens, dtype=torch.float32):
             else:
                 lp = shared if shared is not None \
                     else cast(params["layers"][i])
-                x, _ = T._attn_block(cfg, lp, x, pos, mode="train")
+                x, _, _ = T._attn_block(cfg, lp, x, pos, mode="train")
     head = {k: cast(params[k]) for k in (
         "final_norm", "embed" if cfg.tie_embeddings else "lm_head")}
     return T._head(cfg, head, x)
@@ -2799,17 +2849,115 @@ def rel_errors(got, want) -> list[float]:
     return [float((g - w).norm() / w.norm()) for g, w in zip(got, want)]
 
 
+def path_logits(cfg, params, first, step_batch, n_new, cache_len,
+                forced=None):
+    """A prefill of the batch ``first``, then ``n_new - 1`` decode steps
+    (``step_batch(i, tokens [B, 1])`` gives step i's batch), feeding each
+    step's greedy tokens or ``forced[:, i]``: (the tokens fed [B,
+    n_new - 1], logits f32 [B, n_new, V]).  An MoE layer routes each
+    call's tokens as one group, with its capacity, so an MoE model's
+    logits are held to a plain run of these same calls: a whole-sequence
+    forward would group and drop tokens otherwise."""
+    from repro_torch.models import decode_step, prefill
+    logits, caches = prefill(cfg, params, first, cache_len=cache_len)
+    steps, fed = [logits[:, -1]], []
+    for i in range(n_new - 1):
+        nxt = steps[-1].argmax(-1) if forced is None else forced[:, i]
+        fed.append(nxt.to(torch.int32)[:, None])
+        logits, caches = decode_step(cfg, params, step_batch(i, fed[-1]),
+                                     caches)
+        steps.append(logits[:, -1])
+    return torch.cat(fed, 1), torch.stack(steps, 1)
+
+
+def logits_row(name, errs, tol, control=None, control_errs=None,
+               **extra) -> dict:
+    """Print and check one logits comparison: every relative L2 error
+    within ``tol`` and, with a control, every one of the control's
+    beyond it."""
+    row = dict(rel_l2=errs, tolerance=tol, control=control, **extra)
+    if control:
+        row["control_rel_l2"] = control_errs
+    print(f"logits {name}: relative L2 per position "
+          f"{[round(e, 5) for e in errs]} (tolerance {tol})"
+          + "".join(f"; {k} {[round(e, 5) for e in v]}"
+                    if isinstance(v, list) else f"; {k} {v:.4f}"
+                    for k, v in extra.items())
+          + (f"; control ({control}) "
+             f"{[round(e, 4) for e in control_errs]}" if control else ""),
+          flush=True)
+    check(max(errs) <= tol, f"{name}: logits off by {max(errs):.4f} > {tol}")
+    if control:
+        check(min(control_errs) > tol, f"{name}: the control ({control}) "
+              f"is within {tol} of the reference")
+    return row
+
+
+def moe_logits(c, prompt, n_new, control: dict,
+               ref_dtype=torch.float32) -> dict:
+    """An MoE container's greedy generate (bf16, kernels) against the same
+    prefill and decode steps in plain torch (weights in ``ref_dtype``,
+    every kernel plain), both rows of the batch, forced through the
+    kernel path's tokens; the control is that plain path with the config
+    changed by ``control`` (a ``dataclasses.replace`` of it)."""
+    s = c.prefill_len
+    toks = np.zeros((c.max_batch, s), np.int32)
+    toks[:prompt.shape[0], :prompt.shape[1]] = prompt
+    first = c._batch(torch.from_numpy(toks).to(c.device), 0)
+
+    def step(i, t):
+        return c._batch(t, s + i)
+    with torch.no_grad():
+        fed, got = path_logits(c.cfg, c.params, first, step, n_new,
+                               c.max_len)
+        params = c.params if ref_dtype == torch.bfloat16 \
+            else cast_f32(c.params)
+        cfg = dataclasses.replace(c.cfg, dtype=str(ref_dtype)
+                                  .removeprefix("torch."))
+        with plain_kernels():
+            _, want = path_logits(cfg, params, first, step, n_new,
+                                  c.max_len, fed)
+            _, one = path_logits(dataclasses.replace(cfg, **control),
+                                 params, first, step, n_new, c.max_len, fed)
+            plain16 = want if ref_dtype == torch.bfloat16 else path_logits(
+                c.cfg, c.params, first, step, n_new, c.max_len, fed)[1]
+        del params
+    got, want, one, plain16 = (t.flatten(0, 1)
+                               for t in (got, want, one, plain16))
+    return dict(errs=rel_errors(got, want),
+                control_errs=rel_errors(got, one),
+                plain_bf16_rel_l2=rel_errors(plain16, want),
+                max_abs_err=float((got - want).abs().max()),
+                logit_scale=float(want.abs().max()))
+
+
 def logits_phase(dev) -> dict:
     """One generate of each model against the f32 forward (see
     ``LOGITS_TOL``), each with a control that must miss it:
     starcoder2-3b with its window cut to 16 against the same forward
-    without the window, and the recurrent models decoding the same tokens
-    with their state zeroed before each step."""
+    without the window, the recurrent models decoding the same tokens
+    with their state zeroed before each step, and granite-moe-1b-a400m
+    against its f32 plain prefill and decode steps (``moe_logits``) with
+    one expert a token."""
     from repro_torch.configs import get_config
     from repro_torch.serving import ModelContainer
     out = {}
     for arch in SERVE_MODELS:
         cfg = get_config(arch)
+        if cfg.is_moe:
+            c = ModelContainer(cfg, seed=1, device=dev, **SERVE_CKW)
+            prompt = np.random.default_rng(12).integers(
+                0, cfg.vocab_size, (1, 12)).astype(np.int32)
+            r = moe_logits(c, prompt, 8, dict(experts_per_token=1))
+            out[arch] = logits_row(
+                arch + " (f32 plain prefill and decode steps)", r["errs"],
+                LOGITS_TOL, "the f32 plain path with one expert a token",
+                r["control_errs"], max_abs_err=r["max_abs_err"],
+                logit_scale=r["logit_scale"],
+                plain_bf16_rel_l2=r["plain_bf16_rel_l2"])
+            del c
+            gc.collect()
+            continue
         variants = {arch: cfg}
         if cfg.sliding_window:
             variants[f"{arch} window 16"] = dataclasses.replace(
@@ -2828,44 +2976,227 @@ def logits_phase(dev) -> dict:
                 want = plain_forward(cfgv, c.params, seq)[0, s - 1:]
                 plain16 = plain_forward(cfgv, c.params, seq,
                                         torch.bfloat16)[0, s - 1:]
-            errs = rel_errors(logits[0], want)
-            row = dict(rel_l2=errs, max_abs_err=float(
-                (logits[0] - want).abs().max()),
-                logit_scale=float(want.abs().max()),
-                plain_bf16_rel_l2=rel_errors(plain16, want))
-            control = None
+            control = control_errs = None
             if cfgv.sliding_window and cfgv.sliding_window < s + 7:
                 control = "the f32 forward without the window"
                 nowin = plain_forward(dataclasses.replace(
                     cfgv, sliding_window=None), c.params, seq)[0, s - 1:]
-                row["control_rel_l2"] = rel_errors(logits[0], nowin)
+                control_errs = rel_errors(logits[0], nowin)
             elif cfgv.arch_type in ("hybrid", "ssm"):
                 control = "decoding with the state zeroed each step"
                 # the prefill's position is the same in both; the decode
                 # steps are where a state that is not carried shows
                 reset = decode_with_state_reset(c, prompt, tokens)
-                row["control_rel_l2"] = rel_errors(reset[1:], want[1:])
+                control_errs = rel_errors(reset[1:], want[1:])
             tol = RWKV_LOGITS_TOL if cfgv.arch_type == "ssm" \
                 else LOGITS_TOL
-            out[name] = dict(row, tolerance=tol, control=control)
-            print(f"logits {name}: bf16 kernel path vs f32 plain forward, "
-                  f"relative L2 per position "
-                  f"{[round(e, 5) for e in errs]} (tolerance {tol}),"
-                  f" max abs err {row['max_abs_err']:.4f} of logits up to "
-                  f"{row['logit_scale']:.2f}; the bf16 plain forward "
-                  f"{[round(e, 5) for e in row['plain_bf16_rel_l2']]}" + (
-                      f"; control ({control}) " + str(
-                          [round(e, 4) for e in row["control_rel_l2"]])
-                      if control else ""), flush=True)
-            check(max(errs) <= tol,
-                  f"{name}: logits off by {max(errs):.4f} > {tol}")
-            if control:
-                check(min(row["control_rel_l2"]) > tol,
-                      f"{name}: the control ({control}) is within {tol} "
-                      "of the f32 forward")
+            out[name] = logits_row(
+                f"{name} (bf16 kernel path vs f32 plain forward)",
+                rel_errors(logits[0], want), tol, control, control_errs,
+                max_abs_err=float((logits[0] - want).abs().max()),
+                logit_scale=float(want.abs().max()),
+                plain_bf16_rel_l2=rel_errors(plain16, want))
             del c, logits, want, plain16
             gc.collect()
     return out
+
+
+#: The families phase's containers, one at a time: qwen2-vl-7b (VLM) and
+#: whisper-medium (audio) at full width and depth, and kimi-k2-1t-a32b
+#: (MoE: 384 experts, top 8, a shared expert, head dim 112) at full width
+#: cut from 61 layers to ``KIMI_LAYERS``: one layer's experts are 33.8 GB
+#: in bf16 and the whole model ~2 TB.
+FAMILY_MODELS = ("qwen2-vl-7b", "whisper-medium", "kimi-k2-1t-a32b")
+KIMI_LAYERS = 1
+#: whisper's decoder cache: its 448 learned target positions.
+WHISPER_MAX_LEN = 448
+#: Vision patches spliced into qwen2-vl's 32-token prefill.
+VLM_PATCHES = 16
+#: Tokens a family's ``generate`` makes: a prefill and 8 decode steps.
+FAMILY_NEW = 9
+
+
+def family_config(arch: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == "kimi-k2-1t-a32b":
+        cfg = dataclasses.replace(cfg, n_layers=KIMI_LAYERS)
+    return cfg
+
+
+def family_launches(cfg, prefills: int, decodes: int) -> dict:
+    """B3 and B2 launches of ``prefills`` prefills and ``decodes`` decode
+    steps: B3 once an attention layer (MoE layers included) a prefill and
+    B2 once a decode step; whisper's B3 a prefill once an encoder layer
+    and twice a decoder layer (self and cross), and once a decoder layer
+    a decode step (the cross-attention of its one query)."""
+    n = cfg.layer_kinds().count("attn")
+    if cfg.is_encoder_decoder:
+        return dict(flash_attention=(cfg.n_encoder_layers + 2 * n) * prefills
+                    + n * decodes, decode_attention=n * decodes)
+    return dict(flash_attention=n * prefills, decode_attention=n * decodes)
+
+
+def vlm_logits(c) -> dict:
+    """qwen2-vl-7b: ``VLM_PATCHES`` stub vision patches spliced into a
+    32-token prefill with the stub's 3-D M-RoPE positions and explicit
+    ``seq_positions``, then 7 decode steps at the text positions that
+    follow, both rows; against the f32 plain forward of the whole
+    sequence.  The control is that forward with 1-D (t, t, t) positions,
+    so M-RoPE no longer sees the patch grid."""
+    from repro_torch.models.frontends import stub_vision_patches
+    from repro_torch.models.rope import mrope_text_positions
+    cfg, dev, b = c.cfg, c.device, c.max_batch
+    s, n_new = c.prefill_len, 8
+    gen = torch.Generator(device=dev).manual_seed(14)
+    emb, pp, pos = stub_vision_patches(gen, cfg, b, VLM_PATCHES,
+                                       s + n_new - 1)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev, dtype=torch.int32)
+    seq_pos = torch.arange(s + n_new, dtype=torch.int32,
+                           device=dev)[None].expand(b, -1)
+    first = {"tokens": toks, "patch_embeds": emb, "patch_positions": pp,
+             "positions": pos[:, :s], "seq_positions": seq_pos[:, :s]}
+
+    def step(i, t):
+        return {"tokens": t, "positions": pos[:, s + i:s + i + 1],
+                "seq_positions": seq_pos[:, s + i:s + i + 1]}
+    with torch.no_grad():
+        fed, got = path_logits(cfg, c.params, first, step, n_new, c.max_len)
+        seq = torch.cat([toks, fed], 1)
+        want = plain_forward(cfg, c.params, seq, positions=pos,
+                             patches=(emb, pp))[:, s - 1:]
+        flat = plain_forward(cfg, c.params, seq, positions=(
+            mrope_text_positions(b, s + n_new - 1, device=dev)),
+            patches=(emb, pp))[:, s - 1:]
+    got, want, flat = (t.flatten(0, 1) for t in (got, want, flat))
+    return logits_row(
+        f"qwen2-vl-7b ({VLM_PATCHES} patches; f32 plain forward)",
+        rel_errors(got, want), LOGITS_TOL,
+        "the f32 forward with 1-D (t, t, t) positions",
+        rel_errors(got, flat), max_abs_err=float((got - want).abs().max()),
+        logit_scale=float(want.abs().max()))
+
+
+def causal_cross_attention(cfg, p, x, enc_k, enc_v):
+    """whisper's cross-attention with the causal mask: query i sees
+    encoder frames 0..i only (the whisper logits check's control)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import dense
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    q = dense(p["wq"], x).reshape(b, s, h, hd)
+    o = ops.flash_attention(q, enc_k, enc_v, causal=True)
+    return dense(p["wo"], o.reshape(b, s, h * hd))
+
+
+def whisper_logits(c) -> dict:
+    """whisper-medium: stub audio frames, a 32-token decoder prefill and 7
+    decode steps, both rows, against the f32 plain ``decode_train`` of the
+    whole sequence; the control makes its cross-attention causal."""
+    from repro_torch.models import whisper as W
+    from repro_torch.models.frontends import stub_audio_frames
+    cfg, dev, b = c.cfg, c.device, c.max_batch
+    s, n_new = c.prefill_len, 8
+    gen = torch.Generator(device=dev).manual_seed(15)
+    frames = stub_audio_frames(gen, cfg, b)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev, dtype=torch.int32)
+    first = {"frame_embeds": frames, "tokens": toks}
+
+    def step(i, t):
+        return {"tokens": t, "positions": torch.full(
+            (b, 1), s + i, dtype=torch.int32, device=dev)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        fed, got = path_logits(cfg, c.params, first, step, n_new, c.max_len)
+        seq = torch.cat([toks, fed], 1)
+        p32 = cast_f32(c.params)
+        with plain_kernels():
+            want = W.decode_train(cfg32, p32, frames, seq)[:, s - 1:]
+            saved, W.cross_attention = W.cross_attention, \
+                causal_cross_attention
+            try:
+                causal = W.decode_train(cfg32, p32, frames, seq)[:, s - 1:]
+            finally:
+                W.cross_attention = saved
+        del p32
+    got, want, causal = (t.flatten(0, 1) for t in (got, want, causal))
+    return logits_row(
+        "whisper-medium (stub frames; f32 plain decode_train)",
+        rel_errors(got, want), LOGITS_TOL,
+        "the f32 forward with a causal cross-attention",
+        rel_errors(got, causal),
+        max_abs_err=float((got - want).abs().max()),
+        logit_scale=float(want.abs().max()))
+
+
+def families_phase(dev) -> dict:
+    """The VLM, audio and MoE families, one ``ModelContainer`` at a time,
+    each freed before the next: its cold start; a ``generate`` of a
+    32-token prefill and 8 decode steps at batch 2 with B2's and B3's
+    counts zeroed just before and read just after, which must equal
+    ``family_launches``; every token in the vocabulary; its logits check
+    with a control that must miss; the peak device memory."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.serving import ModelContainer
+    kernels = dict(flash_attention=flash_attention_cuda,
+                   decode_attention=decode_attention_cuda)
+    out, total = {}, dict.fromkeys(kernels, 0)
+    for arch in FAMILY_MODELS:
+        cfg = family_config(arch)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        ckw = dict(SERVE_CKW, max_len=WHISPER_MAX_LEN) \
+            if cfg.is_encoder_decoder else SERVE_CKW
+        c = ModelContainer(cfg, seed=2, device=dev, **ckw)
+        prompt = np.random.default_rng(13).integers(
+            0, cfg.vocab_size, (2, 12)).astype(np.int32)
+        for k in kernels.values():          # the family's path starts here
+            k.launches = 0
+        t0 = time.perf_counter()
+        tokens = c.generate(prompt, FAMILY_NEW)
+        gen_s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}  # ... ends
+        want = family_launches(cfg, 1, FAMILY_NEW - 1)
+        check(launches == want, f"{arch}: launches {launches} != {want}")
+        check(tokens.shape == (2, FAMILY_NEW) and bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+            f"{arch}: tokens {tokens}")
+        for n in total:
+            total[n] += launches[n]
+        print(f"family {arch} ({cfg.n_layers} layers): cold start "
+              f"{c.cold_start_s:.2f} s, size {c.size_mb:.1f} MB; generate "
+              f"of a {c.prefill_len}-token prefill and {FAMILY_NEW - 1} "
+              f"decode steps at batch 2 in {gen_s:.3f} s, launches "
+              f"{launches} == layers x calls", flush=True)
+        if cfg.arch_type == "vlm":
+            logits = vlm_logits(c)
+        elif cfg.is_encoder_decoder:
+            logits = whisper_logits(c)
+        else:
+            # at the prefill's last position every routed choice of the
+            # token is dropped (C = 1 slot an expert for 64 tokens x 8
+            # choices over 384 experts), so a change of routing cannot
+            # show there; the shared expert runs at every position
+            r = moe_logits(c, prompt[:1], 8, dict(n_shared_experts=0),
+                           torch.bfloat16)
+            logits = logits_row(
+                f"{arch} ({KIMI_LAYERS} layer; bf16 plain prefill and "
+                "decode steps)", r["errs"], LOGITS_TOL,
+                "the bf16 plain path without the shared expert",
+                r["control_errs"], max_abs_err=r["max_abs_err"],
+                logit_scale=r["logit_scale"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"family {arch}: peak device memory {peak_gb:.2f} GB",
+              flush=True)
+        out[arch] = dict(layers=cfg.n_layers, cold_start_s=c.cold_start_s,
+                         generate_s=gen_s, launches=launches,
+                         size_mb=c.size_mb, peak_gb=peak_gb, logits=logits)
+        del c
+    gc.collect()
+    return dict(models=out, launches=total)
 
 
 def build_phase(_build) -> None:
@@ -2886,13 +3217,16 @@ def build_phase(_build) -> None:
                 print(f"  ptxas: {line.strip()}")
 
 
-def kernel_entry(name, source, replaces, rows, main_shape, launches,
+def kernel_entry(name, source, replaces, rows, main_shape, by_path,
                  cuda_kernels):
     """The ``kernels`` line's entry for B2-B5 (``rows`` from the attention
-    or scan phase; numbers at ``main_shape``, in bf16)."""
+    or scan phase; numbers at ``main_shape``, in bf16; ``by_path`` the
+    launches of each path that runs the kernel)."""
     main_row = next(r for r in rows if r["shape"] == main_shape)
+    launches = sum(by_path.values())
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches, cuda_kernels=cuda_kernels,
+                launches=launches, launches_by_path=by_path,
+                cuda_kernels=cuda_kernels,
                 cuda_kernel_launches=len(cuda_kernels) * launches,
                 max_abs_err=max(max(r["max_abs_err"].values())
                                 for r in rows),
@@ -2952,6 +3286,7 @@ def main() -> int:
     serving = phase("serving", serving_phase, dev)
     eviction = phase("eviction", eviction_phase, dev, serving["sizes"])
     logits = phase("logits", logits_phase, dev)
+    families = phase("families", families_phase, dev)
     total_s = time.perf_counter() - t_start
     print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                  seconds.items())
@@ -2986,25 +3321,29 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:26",
                    attention["flash"], "path-starcoder2",
-                   serving["launches"]["flash_attention"],
+                   dict(serving=serving["launches"]["flash_attention"],
+                        families=families["launches"]["flash_attention"]),
                    FLASH_KERNELS[torch.bfloat16]),
                kernel_entry(
                    "decode_attention",
                    "src/repro_torch/kernels/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:30",
                    attention["decode"], "path-starcoder2",
-                   serving["launches"]["decode_attention"],
+                   dict(serving=serving["launches"]["decode_attention"],
+                        families=families["launches"]["decode_attention"]),
                    DECODE_KERNELS[torch.bfloat16]),
                kernel_entry(
                    "ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                    "src/repro/kernels/ssm_scan.py:29", scans["ssm_scan"],
-                   "path-zamba2", serving["launches"]["ssm_scan"],
+                   "path-zamba2",
+                   dict(serving=serving["launches"]["ssm_scan"]),
                    SCAN_KERNELS["ssm_scan"][torch.bfloat16]),
                # most of B5's launches are decode steps (S = 1)
                kernel_entry(
                    "wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
                    "src/repro/kernels/wkv6.py:24", scans["wkv6"],
-                   "path-rwkv6-decode", serving["launches"]["wkv6"],
+                   "path-rwkv6-decode",
+                   dict(serving=serving["launches"]["wkv6"]),
                    SCAN_KERNELS["wkv6"][torch.bfloat16])]
     print("kernels: " + json.dumps([e["name"] for e in entries]))
     print(json.dumps({"kernels": entries}))
@@ -3029,6 +3368,7 @@ def main() -> int:
         "serving": {k: serving[k] for k in ("stats", "wall_s", "models",
                                             "peak_gb", "busy")},
         "eviction": eviction["rows"], "logits": logits,
+        "families": families["models"],
         "phase_seconds": seconds, "seconds": total_s, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

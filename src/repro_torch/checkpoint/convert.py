@@ -1,18 +1,22 @@
 """Carry the JAX package's model parameters into the port.
 
-The reference keeps a dense or RWKV model's layers stacked (every leaf
-under ``layers`` has a leading layer axis), and a hybrid's as a list with
-one Mamba layer dict at each ``"mamba"`` position, ``None`` at each
-``"attn"`` position and the one ``shared_attn`` block beside it.  It saves
-checkpoints as flat ``"/"``-joined keys (``repro.checkpoint``:
-``layers/attn/wq/w``, ``layers/0/ssm/in_proj/w``, ``embed/emb``, ...; a
-list index is its number, and a ``None`` has no key).  The port keeps
-``params["layers"]`` as a list of per-layer dicts (``None`` at a hybrid's
-attention positions).  :func:`params_from_reference` takes either form, as
-numpy arrays, unstacks a stacked layer axis, and checks every key, shape
-and dtype against the port's own parameters for the config.  bf16 arrives
-from numpy as ``ml_dtypes.bfloat16`` (or as raw 2-byte ``V2`` after a trip
-through ``.npz``) and is carried bit for bit through ``uint16``.
+The reference keeps a dense, MoE, VLM or RWKV model's layers stacked
+(every leaf under ``layers`` has a leading layer axis; an MoE layer's
+``moe/router/w`` f32 ``[L, D, E]`` and its experts ``moe/{gate,up,down}``
+``[L, E, din, dout]``), whisper's ``enc_layers`` and ``dec_layers`` the
+same way, and a hybrid's as a list with one Mamba layer dict at each
+``"mamba"`` position, ``None`` at each ``"attn"`` position and the one
+``shared_attn`` block beside it.  It saves checkpoints as flat
+``"/"``-joined keys (``repro.checkpoint``: ``layers/attn/wq/w``,
+``layers/0/ssm/in_proj/w``, ``embed/emb``, ...; a list index is its
+number, and a ``None`` has no key).  The port keeps each stack as a list
+of per-layer dicts (``None`` at a hybrid's attention positions).
+:func:`params_from_reference` takes either form, as numpy arrays,
+unstacks every stacked layer axis (each list of the port's params but a
+hybrid's ``layers``), and checks every key, shape and dtype against the
+port's own parameters for the config.  bf16 arrives from numpy as
+``ml_dtypes.bfloat16`` (or as raw 2-byte ``V2`` after a trip through
+``.npz``) and is carried bit for bit through ``uint16``.
 """
 from __future__ import annotations
 
@@ -72,6 +76,14 @@ def _tensor(arr: np.ndarray, want: torch.Tensor, key: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))      # a writable copy
 
 
+def stacked_keys(cfg: ModelConfig, params: dict) -> list:
+    """The keys of ``params`` whose list of layers the reference stacks
+    on a leading axis: every list but a hybrid's ``layers``."""
+    if cfg.arch_type == "hybrid":
+        return []
+    return [k for k, v in params.items() if isinstance(v, list)]
+
+
 def params_from_reference(tree, cfg: ModelConfig, device=None) -> dict:
     """The port's params for ``cfg`` from the reference's: a nested tree
     of arrays (``repro.models.init_params``'s layout) or its flat
@@ -91,17 +103,16 @@ def params_from_reference(tree, cfg: ModelConfig, device=None) -> dict:
         seen.add(key)
         return _tensor(arr, leaf, key)
 
-    stacked = cfg.arch_type != "hybrid"
-    out = _map({k: v for k, v in want.items()
-                if not (stacked and k == "layers")},
+    stacked = stacked_keys(cfg, want)
+    out = _map({k: v for k, v in want.items() if k not in stacked},
                lambda key, leaf: take(key, leaf, tuple(leaf.shape)).to(dev))
-    if stacked:
-        n = cfg.n_layers
-        layer = want["layers"][0] if n else {}
-        full = {sub: take(f"layers/{sub}", leaf, (n, *leaf.shape))
+    for name in stacked:
+        n = len(want[name])
+        layer = want[name][0] if n else {}
+        full = {sub: take(f"{name}/{sub}", leaf, (n, *leaf.shape))
                 for sub, leaf in flatten(layer).items()}
-        out["layers"] = [_map(layer, lambda sub, _: full[sub][i].clone()
-                              .to(dev)) for i in range(n)]
+        out[name] = [_map(layer, lambda sub, _: full[sub][i].clone()
+                          .to(dev)) for i in range(n)]
     extra = sorted(set(flat) - seen)
     if extra:
         raise KeyError(f"reference params the port does not know: {extra}")

@@ -1,6 +1,7 @@
-"""Model substrate of the port: configs, layers, attention, the Mamba2
-and RWKV6 blocks, and the dense, hybrid and SSM decoder stacks (MoE, VLM
-and audio come in later slices)."""
+"""Model substrate of the port: configs, layers, attention, MoE, the
+Mamba2 and RWKV6 blocks, whisper, and the decoder stacks of every family
+(dense, MoE, VLM, hybrid, SSM).  ``loss_fn`` comes with training
+(ROADMAP A16)."""
 from .config import INPUT_SHAPES, InputShape, ModelConfig
 from .model import (decode_step, forward_train, init_caches, init_params,
                     prefill)

@@ -5,8 +5,8 @@ Unlike the reference, whose arrays are immutable, the cache is written in
 place: ``attention_prefill`` fills a new cache and ``attention_decode``
 writes its one slot into the cache it is given (and returns that same
 cache), so a container decodes without copying its cache arena each
-step.  Cross-attention (the whisper decoder) comes with whisper
-(ROADMAP A15).
+step.  Cross-attention (the whisper decoder against the encoder's
+states) runs the prefill kernel without the causal mask.
 """
 from __future__ import annotations
 
@@ -174,3 +174,32 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                              cache.slot_pos, pos1d, window=window)
     y = dense(p["wo"], o.reshape(b, 1, h * hd))
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (whisper decoder -> encoder states)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(gen, cfg: ModelConfig, *, device="cpu") -> dict:
+    return attn_init(gen, cfg, device=device)
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, D]; enc_k/enc_v: [B, S_enc, H, hd] (precomputed by
+    :func:`encode_cross_kv`).  Every query sees every encoder frame."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    q = _split_heads(dense(p["wq"], x), h, hd)
+    o = ops.flash_attention(q.contiguous(), enc_k.contiguous(),
+                            enc_v.contiguous(), causal=False)
+    return dense(p["wo"], o.reshape(b, s, h * hd))
+
+
+def encode_cross_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
+    """The encoder states' keys and values [B, S_enc, H, hd] for one
+    decoder layer's cross-attention (whisper is MHA: H kv heads)."""
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    k = _split_heads(dense(p["wk"], enc_out), h, hd)
+    v = _split_heads(dense(p["wv"], enc_out), h, hd)
+    return k, v

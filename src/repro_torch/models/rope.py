@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .._device import resolve_device
+
 
 def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
     """f32[head_dim//2] inverse frequencies, computed in f32."""
@@ -52,3 +54,18 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     s = torch.sin(angles).to(x.dtype)[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
+
+def text_positions(batch: int, seq: int, offset=0,
+                   device=None) -> torch.Tensor:
+    """i32[1, seq]: ``offset .. offset + seq - 1`` (broadcasts over the
+    batch, as the reference's does), on ``device`` (CUDA unless
+    ``"cpu"``)."""
+    return torch.arange(seq, dtype=torch.int32,
+                        device=resolve_device(device))[None] + offset
+
+
+def mrope_text_positions(batch: int, seq: int, offset=0,
+                         device=None) -> torch.Tensor:
+    """Text-only M-RoPE positions: (t, t, t), i32[batch, seq, 3]."""
+    p = text_positions(batch, seq, offset, device)
+    return p[..., None].expand(batch, seq, 3)

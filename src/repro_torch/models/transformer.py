@@ -1,5 +1,5 @@
-"""Decoder-only stacks of the dense, hybrid (zamba2) and SSM (rwkv6)
-families; port of ``repro.models.transformer``.
+"""Decoder-only stacks of the dense, MoE, VLM, hybrid (zamba2) and SSM
+(rwkv6) families; port of ``repro.models.transformer``.
 
 * ``init_params(cfg, seed, device)``
 * ``forward_train(cfg, params, batch)``          -> (logits, aux)
@@ -14,12 +14,13 @@ reference's layout: ``params["layers"]`` holds a Mamba layer at each
 ``"mamba"`` position and ``None`` at each ``"attn"`` position, where the
 one ``params["shared_attn"]`` block runs, with a ``KVCache`` of its own at
 each position.  ``forward_train`` is the no-cache forward, without
-rematerialisation.  The MoE, VLM and audio families raise
-``NotImplementedError`` naming their ROADMAP item until their slice lands
-(at ``init_params``/``init_caches``: no params exist for them to run).
+rematerialisation.  An MoE model's attention layers carry ``moe`` in
+place of ``mlp``.  The whisper encoder-decoder is ``whisper.py``.
 
 ``batch`` keys: ``tokens`` i32[B,S] (or ``embeds`` f32[B,S,D]),
-``positions`` i32[B,S], optionally ``seq_positions`` i32[B,S].
+``positions`` i32[B,S] (or [B,S,3] for M-RoPE), optionally
+``seq_positions`` i32[B,S]; a VLM's ``patch_embeds`` [B,P,D] are spliced
+in at ``patch_positions`` i32[B,P].
 """
 from __future__ import annotations
 
@@ -33,33 +34,14 @@ from .attention import (attention_decode, attention_prefill, attn_init,
 from .config import ModelConfig
 from .layers import _dtype, dense, dense_init, embed, embedding_init, mlp, mlp_init, \
     norm, norm_init
+from .moe import moe_apply, moe_init
 from .rwkv import (RWKVCache, channel_mix, init_rwkv_cache, rwkv_init,
                    time_mix)
 from .ssm import init_ssm_cache, ssm_decode, ssm_init, ssm_prefill
 
-#: Families not ported yet, and the ROADMAP item that brings each.
-NOT_PORTED = {
-    "moe": "moe.py (ROADMAP A15)",
-    "vlm": "the VLM frontends (ROADMAP A15)",
-    "audio": "whisper (ROADMAP A15)",
-}
-
-
 class Aux(NamedTuple):
     moe_aux: torch.Tensor
     router_entropy: torch.Tensor
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless this slice runs ``cfg``'s family."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models come with "
-            f"{NOT_PORTED['audio']}")
-    kind = "moe" if cfg.is_moe else cfg.arch_type
-    if kind in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind} family comes with {NOT_PORTED[kind]}")
 
 
 def _device(device):
@@ -72,13 +54,17 @@ def _device(device):
 # ---------------------------------------------------------------------------
 
 def _attn_layer_init(gen, cfg: ModelConfig, device) -> dict:
-    return {"ln1": norm_init(cfg.d_model, cfg.norm_type, "float32",
-                             device=device),
-            "attn": attn_init(gen, cfg, device=device),
-            "ln2": norm_init(cfg.d_model, cfg.norm_type, "float32",
-                             device=device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.dtype,
-                            device=device)}
+    p = {"ln1": norm_init(cfg.d_model, cfg.norm_type, "float32",
+                          device=device),
+         "attn": attn_init(gen, cfg, device=device),
+         "ln2": norm_init(cfg.d_model, cfg.norm_type, "float32",
+                          device=device)}
+    if cfg.is_moe:
+        p["moe"] = moe_init(gen, cfg, device=device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.dtype,
+                            device=device)
+    return p
 
 
 def _mamba_layer_init(gen, cfg: ModelConfig, device) -> dict:
@@ -99,7 +85,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random weights in ``cfg.dtype`` (norms in f32) from a
     ``torch.Generator`` seeded with ``seed``, on ``device`` (CUDA unless
     ``"cpu"``; ``"meta"`` gives shapes and dtypes without allocating)."""
-    check_supported(cfg)
     dev = _device(device)
     gen = None
     if dev.type != "meta":
@@ -145,8 +130,11 @@ def _attn_block(cfg, lp, x, positions, *, mode, cache=None,
                                          window_override=window,
                                          seq_positions=seq_positions)
     x = x + h
-    x = x + mlp(lp["mlp"], norm(lp["ln2"], x, cfg.norm_eps), cfg.act)
-    return x, new_cache
+    z = norm(lp["ln2"], x, cfg.norm_eps)
+    if cfg.is_moe:
+        out = moe_apply(cfg, lp["moe"], z)
+        return x + out.y, new_cache, Aux(out.aux_loss, out.router_entropy)
+    return x + mlp(lp["mlp"], z, cfg.act), new_cache, _zero_aux(x)
 
 
 def _mamba_block(cfg, lp, x, *, mode, cache=None):
@@ -176,10 +164,18 @@ def _rwkv_block(cfg, lp, x, *, cache: RWKVCache | None = None):
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Token embeddings (or ``embeds``), with a VLM's ``patch_embeds``
+    written over the rows at ``patch_positions``."""
     compute = _dtype(cfg.dtype)
-    if batch.get("embeds") is not None:
-        return batch["embeds"].to(compute)
-    return embed(params["embed"], batch["tokens"].long(), compute)
+    if batch.get("embeds") is not None:      # a copy: patches write in
+        x = batch["embeds"].to(compute, copy=True)
+    else:
+        x = embed(params["embed"], batch["tokens"].long(), compute)
+    if batch.get("patch_embeds") is not None:
+        bi = torch.arange(x.shape[0], device=x.device)[:, None]
+        x[bi, batch["patch_positions"].long()] = \
+            batch["patch_embeds"].to(compute)
+    return x
 
 
 def _head(cfg: ModelConfig, params, x) -> torch.Tensor:
@@ -199,8 +195,10 @@ def _run_stack(cfg: ModelConfig, params, x, positions, *, mode,
                caches=None, cache_len=0, window=None, seq_positions=None):
     """Run the layer stack, one layer after another (the hybrid's
     attention positions through the shared block).  Returns (x, caches or
-    None)."""
-    new_caches = []
+    None, Aux): ``moe_aux`` summed over the layers, ``router_entropy``
+    averaged over a homogeneous stack and summed over a hybrid's, as the
+    reference's scan and loop give them."""
+    new_caches, auxs = [], []
     for i, kind in enumerate(cfg.layer_kinds()):
         c = caches[i] if caches is not None else None
         if kind == "mamba":
@@ -211,11 +209,19 @@ def _run_stack(cfg: ModelConfig, params, x, positions, *, mode,
         else:
             lp = params["shared_attn"] if cfg.arch_type == "hybrid" \
                 else params["layers"][i]
-            x, c = _attn_block(cfg, lp, x, positions, mode=mode, cache=c,
-                               cache_len=cache_len, window=window,
-                               seq_positions=seq_positions)
+            x, c, a = _attn_block(cfg, lp, x, positions, mode=mode,
+                                  cache=c, cache_len=cache_len,
+                                  window=window,
+                                  seq_positions=seq_positions)
+            auxs.append(a)
         new_caches.append(c)
-    return x, (new_caches if mode != "train" else None)
+    aux = _zero_aux(x)
+    if cfg.is_moe and auxs:
+        entropy = torch.stack([a.router_entropy for a in auxs]).sum()
+        if cfg.arch_type != "hybrid":
+            entropy = entropy / len(auxs)
+        aux = Aux(torch.stack([a.moe_aux for a in auxs]).sum(), entropy)
+    return x, (new_caches if mode != "train" else None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -224,20 +230,21 @@ def _run_stack(cfg: ModelConfig, params, x, positions, *, mode,
 
 def forward_train(cfg: ModelConfig, params, batch):
     """The no-cache forward over the whole sequence: (logits f32
-    [B, S, V], Aux of zeros)."""
+    [B, S, V], Aux; zeros but for an MoE model)."""
     x = _embed_inputs(cfg, params, batch)
-    x, _ = _run_stack(cfg, params, x, batch.get("positions"), mode="train")
-    return _head(cfg, params, x), _zero_aux(x)
+    x, _, aux = _run_stack(cfg, params, x, batch.get("positions"),
+                           mode="train")
+    return _head(cfg, params, x), aux
 
 
 def prefill(cfg: ModelConfig, params, batch, *, cache_len: int = 0,
             window: int | None = None):
     """Logits f32 [B, 1, V] at the last position, and per-layer caches."""
     x = _embed_inputs(cfg, params, batch)
-    x, caches = _run_stack(cfg, params, x, batch.get("positions"),
-                           mode="prefill", cache_len=cache_len,
-                           window=window,
-                           seq_positions=batch.get("seq_positions"))
+    x, caches, _ = _run_stack(cfg, params, x, batch.get("positions"),
+                              mode="prefill", cache_len=cache_len,
+                              window=window,
+                              seq_positions=batch.get("seq_positions"))
     return _head(cfg, params, x[:, -1:]), caches
 
 
@@ -246,9 +253,9 @@ def decode(cfg: ModelConfig, params, batch, caches, *,
     """One token: logits f32 [B, 1, V], and the caches, written in
     place."""
     x = _embed_inputs(cfg, params, batch)
-    x, caches = _run_stack(cfg, params, x, batch.get("positions"),
-                           mode="decode", caches=caches, window=window,
-                           seq_positions=batch.get("seq_positions"))
+    x, caches, _ = _run_stack(cfg, params, x, batch.get("positions"),
+                              mode="decode", caches=caches, window=window,
+                              seq_positions=batch.get("seq_positions"))
     return _head(cfg, params, x), caches
 
 
@@ -262,7 +269,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     """Blank per-layer caches: a ``KVCache`` at each attention position
     (``window`` caps it to a ring of that many slots), an ``SSMCache`` at
     each Mamba layer and an ``RWKVCache`` at each RWKV layer."""
-    check_supported(cfg)
     eff_len = min(max_len, window) if window else max_len
     dev = _device(device)
     make = {"attn": lambda: init_cache(cfg, batch, eff_len, dtype,

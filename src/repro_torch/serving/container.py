@@ -50,8 +50,10 @@ def cache_mb(cfg: ModelConfig, batch: int, max_len: int) -> float:
     at each attention position k and v ``[B, S_c, KV, D]`` f32 and
     ``slot_pos`` i32 ``[B, S_c]``; at each Mamba layer the conv history
     ``[B, W-1, conv_dim]`` and the state ``[B, H, N, P]``; at each RWKV
-    layer the two shifts ``[B, D]`` and the state ``[B, H, 64, 64]``; all
-    f32."""
+    layer the two shifts ``[B, D]`` and the state ``[B, H, 64, 64]``; for
+    an encoder-decoder also each decoder layer's cross k and v
+    ``[B, S_enc, H, D]``; all f32.  An MoE layer is an attention
+    position."""
     per_kind = {}
     if cfg.n_heads:
         s = cache_slots(cfg, max_len)
@@ -64,7 +66,11 @@ def cache_mb(cfg: ModelConfig, batch: int, max_len: int) -> float:
     if cfg.arch_type == "ssm":
         h, hd = rwkv_heads(cfg)
         per_kind["rwkv"] = batch * (2 * cfg.d_model + h * hd * hd)
-    return sum(per_kind[k] for k in cfg.layer_kinds()) * 4 / 1e6
+    total = sum(per_kind[k] for k in cfg.layer_kinds())
+    if cfg.is_encoder_decoder:
+        total += cfg.n_layers * 2 * batch * cfg.encoder_seq * cfg.n_heads \
+            * cfg.resolved_head_dim
+    return total * 4 / 1e6
 
 
 class ModelContainer:
@@ -77,6 +83,7 @@ class ModelContainer:
         self.max_batch = max_batch
         self.max_len = max_len
         self.device = resolve_device(device)
+        self._frames = None
         t0 = time.perf_counter()
         self.params = init_params(cfg, seed, self.device)
         self.prefill_len = min(32, max_len // 2)
@@ -86,10 +93,22 @@ class ModelContainer:
                                                          max_len)
 
     def _batch(self, tokens: torch.Tensor, pos0: int) -> dict:
+        """The reference's ``_dummy_batch`` with these tokens: positions
+        ``pos0 ..``, as (t, t, t) for a VLM; for whisper zero frame
+        embeddings f32 [B, S_enc, D] (made once)."""
         b, s = tokens.shape
         pos = torch.arange(pos0, pos0 + s, dtype=torch.int32,
                            device=self.device)[None].expand(b, s)
-        return {"tokens": tokens, "positions": pos, "seq_positions": pos}
+        batch = {"tokens": tokens, "positions": pos, "seq_positions": pos}
+        if self.cfg.is_encoder_decoder:
+            if self._frames is None or self._frames.shape[0] != b:
+                self._frames = torch.zeros(
+                    (b, self.cfg.encoder_seq, self.cfg.d_model),
+                    dtype=torch.float32, device=self.device)
+            batch["frame_embeds"] = self._frames
+        if self.cfg.arch_type == "vlm":
+            batch["positions"] = pos[..., None].expand(b, s, 3)
+        return batch
 
     def _warm_up(self):
         """One prefill and one decode at the serving shapes."""

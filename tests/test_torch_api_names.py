@@ -1,7 +1,9 @@
 """The port's public names against the reference's, on the CPU.
 
 For ``repro.sim``, ``repro.cluster``, ``repro.core`` and
-``repro.workloads``: every public name of the reference exists in the
+``repro.workloads`` (and, at the end, ``repro.models``, its ``moe``,
+``whisper``, ``frontends`` and ``rope`` modules and
+``repro.launch.serve``): every public name of the reference exists in the
 port unless it belongs to a slice still to come (``PENDING``, each with
 its ROADMAP id, so that a slice that lands shrinks the list); a
 function keeps the reference's positional parameters, the port adding
@@ -138,3 +140,67 @@ def test_exports_the_slice_names():
     from repro_torch.sim.telemetry import run_manifest as rm
     assert (Autoscale, Failures) == (A, F)
     assert run_manifest is rm and callable(sweep) and callable(write_manifest)
+
+
+# ---------------------------------------------------------------------------
+# the model stack and the serving entry point
+# ---------------------------------------------------------------------------
+
+#: Public names of the reference's model and serving modules that the
+#: port does not have yet, with the ROADMAP item that ports them.
+MODEL_PENDING = {
+    "models": {"loss_fn": "A16"},
+    "models.moe": {},
+    "models.whisper": {},
+    "models.frontends": {},
+    "models.rope": {},
+    "launch.serve": {},
+}
+#: The reference's inits and stubs take a ``jax.random`` key; the port's
+#: take a seed (``init_params``) or a ``torch.Generator`` in its place.
+KEY_NAMES = ("gen", "seed")
+
+
+def defined(mod) -> set:
+    """``__all__``, or else the functions and classes the module itself
+    defines (not what it imports)."""
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    return {n for n, v in vars(mod).items() if not n.startswith("_")
+            and (inspect.isfunction(v) or inspect.isclass(v))
+            and v.__module__ == mod.__name__}
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_PENDING))
+def test_model_names_are_ported(name):
+    ref, port = modules(name)
+    pending = set(MODEL_PENDING[name])
+    missing = sorted(defined(ref) - defined(port) - pending)
+    assert not missing, f"repro_torch.{name} lacks {missing}"
+    landed = sorted(pending & defined(port))
+    assert not landed, f"repro_torch.{name} has {landed}: drop them " \
+        "from MODEL_PENDING"
+    assert pending <= defined(ref)
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_PENDING))
+def test_model_functions_keep_their_parameters(name):
+    """Positional parameters as the reference's, the port adding at most
+    a trailing ``device`` and taking a seed or a generator where the
+    reference takes a key; a class keeps the reference's members."""
+    ref, port = modules(name)
+    for fn in sorted(defined(ref) & defined(port)):
+        a, b = getattr(ref, fn), getattr(port, fn)
+        if inspect.isclass(a):
+            lost = sorted(members(a) - members(b))
+            assert not lost, f"{name}.{fn} lacks {lost}"
+            continue
+        if not inspect.isfunction(a):
+            continue
+        want, got = positional(a), positional(b)
+        if got[-1:] == ["device"] and want[-1:] != ["device"]:
+            got = got[:-1]
+        assert len(got) == len(want), f"{name}.{fn}: {got} != {want}"
+        for w, g in zip(want, got):
+            assert g == w or (w == "key" and g in KEY_NAMES), \
+                f"{name}.{fn}: {got} != {want}"

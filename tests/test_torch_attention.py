@@ -98,6 +98,10 @@ FLASH_CASES = {   # name: (b, sq, skv, h, kv, d, causal, window, q_offset)
     # kimi-k2-1t-a32b: D = 112, G = 8
     "kimi-d112": (1, 128, 128, 16, 2, 112, True, None, 0),
     "kimi-d112-ragged": (2, 37, 90, 8, 1, 112, True, 30, 50),
+    # qwen2-vl-7b's odd GQA group of 7, and whisper's cross-attention: a
+    # few decoder queries against more encoder frames, no mask
+    "group7": (1, 40, 40, 14, 2, 128, True, None, 0),
+    "cross-noncausal": (2, 9, 150, 4, 4, 64, False, None, 0),
 }
 DECODE_CASES = {  # name: (b, s, h, kv, d, window)
     "gqa": (2, 1024, 8, 2, 64, None),
@@ -107,6 +111,7 @@ DECODE_CASES = {  # name: (b, s, h, kv, d, window)
     "gqa24-ragged": (1, 200, 24, 1, 128, None),
     "kimi-d112": (2, 512, 16, 2, 112, None),
     "kimi-d112-window": (1, 300, 8, 1, 112, 100),
+    "group7": (2, 300, 14, 2, 128, None),
 }
 
 
@@ -272,6 +277,16 @@ CARD_FLASH = dict(FLASH_CASES, **{
     # and a ragged one with a window and a query offset
     "kimi-d112-path": (2, 32, 32, 64, 8, 112, True, None, 0),
     "kimi-d112-offset": (1, 333, 1000, 64, 8, 112, True, 200, 700),
+    # granite-moe-1b-a400m's prefill (H = 16 over KV = 8, D = 64) and
+    # qwen2-vl-7b's (a group of 7, D = 128); whisper-medium's encoder
+    # over 1,500 frames and its cross-attention at the prefill (Sq = 32)
+    # and at each decode step (Sq = 1), all without the causal mask and
+    # with a ragged last kv tile (1,500 = 11 x 128 + 92)
+    "path-granite-moe": (2, 32, 32, 16, 8, 64, True, None, 0),
+    "path-qwen2vl": (2, 32, 32, 28, 4, 128, True, None, 0),
+    "whisper-enc": (2, 1500, 1500, 16, 16, 64, False, None, 0),
+    "whisper-x32": (2, 32, 1500, 16, 16, 64, False, None, 0),
+    "whisper-x1": (2, 1, 1500, 16, 16, 64, False, None, 0),
 })
 CARD_DECODE = dict(DECODE_CASES, **{
     "path-starcoder2": (2, 4096, 24, 2, 128, 4096),
@@ -288,10 +303,16 @@ CARD_DECODE = dict(DECODE_CASES, **{
     # the straddling ring with holes
     "kimi-d112-path": (2, 4096, 64, 8, 112, None),
     "kimi-d112-ring": (2, 512, 64, 8, 112, 64),
+    # the decode caches of granite-moe, qwen2-vl (a group of 7) and
+    # whisper's decoder (448 target positions, MHA)
+    "path-granite-moe": (2, 4096, 16, 8, 64, None),
+    "path-qwen2vl": (2, 4096, 28, 4, 128, None),
+    "path-whisper": (2, 448, 16, 16, 64, None),
 })
 #: Cases whose cache is filled as served (slots 0..35), and rings whose
 #: position p sits at slot p % S.
-SERVING_FILL = ("serving-fill", "path-zamba2", "kimi-d112-path")
+SERVING_FILL = ("serving-fill", "path-zamba2", "kimi-d112-path",
+                "path-granite-moe", "path-qwen2vl", "path-whisper")
 RINGS = ("ring-straddle", "kimi-d112-ring")
 
 

@@ -29,7 +29,6 @@ from repro_torch.models import (decode_step, forward_train, init_params,
 from repro_torch.models import attention as T_attn
 from repro_torch.models import layers as T_layers
 from repro_torch.models import rope as T_rope
-from repro_torch.models.transformer import check_supported
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("starcoder2-3b", "glm4-9b")
@@ -245,13 +244,13 @@ def test_checkpoint_file_and_bf16_bits(ref, tmp_path):
         params_from_reference(flat, cfg, "cpu")
 
 
-@pytest.mark.parametrize("arch", [
-    a for a in ARCH_IDS
-    if get_config(a).arch_type in ("dense", "hybrid", "ssm")])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_full_width_param_shapes_match_reference(arch, ref):
-    """At full width, from shapes only (``jax.eval_shape`` / ``meta``):
-    the dense and RWKV stacks with the reference's leading layer axis,
-    the hybrid's list (``None`` at the shared block's positions) as it
+    """At full width, from shapes only (``jax.eval_shape`` / ``meta``),
+    for every config the repo ships (kimi-k2's trillion-parameter tree
+    included): the dense, MoE, VLM and RWKV stacks and whisper's encoder
+    and decoder stacks with the reference's leading layer axis, the
+    hybrid's list (``None`` at the shared block's positions) as it
     is."""
     cfg = get_config(arch)
     jax = ref["jax"]
@@ -262,34 +261,30 @@ def test_full_width_param_shapes_match_reference(arch, ref):
         key = "/".join(str(p.key if hasattr(p, "key") else p.idx)
                        for p in path)
         want[key] = (tuple(leaf.shape), str(leaf.dtype))
-    from repro_torch.checkpoint.convert import flatten
+    from repro_torch.checkpoint.convert import flatten, stacked_keys
     meta = init_params(cfg, device="meta")
-    stacked = cfg.arch_type != "hybrid"
+    stacked = stacked_keys(cfg, meta)
+    assert stacked == ([] if cfg.arch_type == "hybrid" else
+                       ["enc_layers", "dec_layers"]
+                       if cfg.is_encoder_decoder else ["layers"])
     got = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
            for k, v in flatten({k: v for k, v in meta.items()
-                                if not (stacked and k == "layers")}).items()}
-    if stacked:
-        for k, v in flatten(meta["layers"][0]).items():
-            got[f"layers/{k}"] = ((cfg.n_layers, *v.shape),
+                                if k not in stacked}).items()}
+    for name in stacked:
+        for k, v in flatten(meta[name][0]).items():
+            got[f"{name}/{k}"] = ((len(meta[name]), *v.shape),
                                   str(v.dtype).removeprefix("torch."))
     assert got == want
     assert all(t.device.type == "meta" for t in flatten(meta).values())
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("granite-moe-1b-a400m", "moe.py"), ("qwen2-vl-7b", "VLM"),
-    ("whisper-medium", "whisper")])
-def test_other_families_raise_naming_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        check_supported(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match=item):
-        init_params(get_config(arch).reduced(), device="cpu")
-
-
 def test_default_device_is_cuda(monkeypatch):
+    """Without CUDA the model inits raise rather than fall back, the
+    decoder stacks' and whisper's alike."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_params(get_config("glm4-9b").reduced())
+    for arch in ("glm4-9b", "whisper-medium"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_params(get_config(arch).reduced())
 
 
 # ---------------------------------------------------------------------------

@@ -4,13 +4,16 @@
   outcomes, victims, free memory, clock and ``ClassMetrics`` (exactly:
   the pool is f32-mirrored numpy on both sides).
 * Container sizes: equal to the reference's for the reduced configs, and
-  at full width for starcoder2-3b, glm4-9b, zamba2-1.2b and rwkv6-7b from
-  shapes alone (``jax.eval_shape`` / ``device="meta"``), so the server's
-  class and pool decisions at full width are the reference's.
+  at full width for starcoder2-3b, glm4-9b, zamba2-1.2b, rwkv6-7b and the
+  MoE, VLM and audio families from shapes alone (``jax.eval_shape`` /
+  ``device="meta"``), so the server's class and pool decisions at full
+  width are the reference's.
 * Servers: one request stream through ``repro.serving`` and the port
   gives the same statuses and metrics; a port container holding the
   reference container's weights gives its prefill and decode logits
-  (f32, 1e-5 absolute and relative, as ``test_torch_models.py``).
+  (f32, 1e-5 absolute and relative, as ``test_torch_models.py``), its
+  warm-up batch as the reference's (3-D positions for a VLM, zero frame
+  embeddings for whisper).
 
 The reference is imported inside fixtures, so the file also collects
 where JAX is absent; the ``cuda``-marked tests run the container on the
@@ -41,8 +44,11 @@ CKW = dict(max_batch=2, max_len=64)
 ARCHS = ("starcoder2-3b", "granite-34b", "glm4-9b", "qwen2.5-32b")
 #: The models that carry the serving path of each ported family.
 SIZED = ("starcoder2-3b", "glm4-9b", "zamba2-1.2b", "rwkv6-7b")
+#: The models of the MoE, VLM and audio families.
+FAMILIES = ("granite-moe-1b-a400m", "kimi-k2-1t-a32b", "qwen2-vl-7b",
+            "whisper-medium")
 #: chip_smoke.py's KissServer budget (``SERVE_BUDGET`` there).
-SMOKE_BUDGET = dict(total_mb=96_000, small_frac=0.25, threshold_mb=20_000)
+SMOKE_BUDGET = dict(total_mb=96_000, small_frac=0.27, threshold_mb=20_000)
 
 
 @pytest.fixture(scope="module")
@@ -146,10 +152,10 @@ def test_resize_policy_raises_naming_a11():
 @pytest.fixture(scope="module")
 def ref_containers(ref):
     return {a: ref["serving"].ModelContainer(cfg, **CKW)
-            for a, cfg in ref_registry(ref, SIZED).items()}
+            for a, cfg in ref_registry(ref, SIZED + FAMILIES).items()}
 
 
-@pytest.mark.parametrize("arch", SIZED)
+@pytest.mark.parametrize("arch", SIZED + FAMILIES)
 def test_reduced_container_size_matches_reference(arch, ref_containers):
     c = ModelContainer(get_config(arch).reduced(), device="cpu", **CKW)
     assert c.size_mb == pytest.approx(ref_containers[arch].size_mb,
@@ -157,7 +163,7 @@ def test_reduced_container_size_matches_reference(arch, ref_containers):
     assert c.cold_start_s > 0
 
 
-@pytest.mark.parametrize("arch", SIZED)
+@pytest.mark.parametrize("arch", SIZED + FAMILIES)
 def test_full_width_container_size_matches_reference(arch, ref):
     """The container of ``chip_smoke.py`` (max_batch 2, max_len 4096)."""
     jax, jnp = ref["jax"], ref["jnp"]
@@ -173,17 +179,28 @@ def test_full_width_container_size_matches_reference(arch, ref):
 
 
 def test_full_width_classes_of_the_smoke_run():
-    """chip_smoke.py's KissServer: the f32 estimates put starcoder2-3b
-    and zamba2-1.2b in the small pool and rwkv6-7b and glm4-9b in the
-    large one, and each pool holds both of its models at once."""
+    """chip_smoke.py's KissServer: the f32 estimates put starcoder2-3b,
+    zamba2-1.2b and granite-moe-1b-a400m in the small pool (24,449 MB of
+    25,920) and rwkv6-7b and glm4-9b in the large one (67,665 MB of
+    70,080), and each pool holds all of its models at once; 16 requests
+    of seed 0 give every model at least one."""
     reg = {a: get_config(a) for a in ("starcoder2-3b", "rwkv6-7b",
-                                      "zamba2-1.2b", "glm4-9b")}
+                                      "zamba2-1.2b", "glm4-9b",
+                                      "granite-moe-1b-a400m")}
     srv = KissServer(reg, **SMOKE_BUDGET)
     want = {"starcoder2-3b": 12_722.491392, "rwkv6-7b": 30_065.819648,
-            "zamba2-1.2b": 6_186.377216, "glm4-9b": 37_599.051776}
+            "zamba2-1.2b": 6_186.377216, "glm4-9b": 37_599.051776,
+            "granite-moe-1b-a400m": 5_539.848192}
     for m, mb in want.items():
         assert srv.size_mb(m) == pytest.approx(mb)
-    small, large = ("starcoder2-3b", "zamba2-1.2b"), ("rwkv6-7b", "glm4-9b")
+    assert (srv.small_pool.cfg.capacity_mb,
+            srv.large_pool.cfg.capacity_mb) == (25_920.0, 70_080.0)
+    reqs = T_serve.synthesize_requests(reg, 16, seed=0)
+    assert {m: sum(r.model_id == m for r in reqs) for m in reg} == {
+        "starcoder2-3b": 4, "rwkv6-7b": 6, "zamba2-1.2b": 3, "glm4-9b": 1,
+        "granite-moe-1b-a400m": 2}
+    small = ("starcoder2-3b", "zamba2-1.2b", "granite-moe-1b-a400m")
+    large = ("rwkv6-7b", "glm4-9b")
     for models, pool in ((small, srv.small_pool), (large, srv.large_pool)):
         assert all(srv._pool_for(m) is pool for m in models)
         assert sum(want[m] for m in models) <= pool.cfg.capacity_mb
@@ -242,8 +259,21 @@ def test_eviction_releases_the_container():
 def test_container_logits_match_reference(ref, ref_containers):
     """The port's container with the reference container's weights:
     prefill then decode logits, step by step, and the greedy tokens."""
-    rc = ref_containers["starcoder2-3b"]
-    cfg = get_config("starcoder2-3b").reduced()
+    container_logits_match(ref, ref_containers, "starcoder2-3b")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_container_logits_match_reference(arch, ref,
+                                                 ref_containers):
+    """As above for the MoE, VLM and audio families: the container's
+    batches are the reference's ``_dummy_batch`` (3-D (t, t, t) positions
+    for qwen2-vl, zero frame embeddings for whisper)."""
+    container_logits_match(ref, ref_containers, arch)
+
+
+def container_logits_match(ref, ref_containers, arch):
+    rc = ref_containers[arch]
+    cfg = get_config(arch).reduced()
     c = ModelContainer(cfg, device="cpu", **CKW)
     c.params = params_from_reference(
         ref["jax"].tree_util.tree_map(np.asarray, rc.params), cfg, "cpu")
@@ -275,14 +305,20 @@ def test_container_logits_match_reference(ref, ref_containers):
 
 
 def test_serve_cli_and_registry(capsys):
-    """The CLI's default registry (four archs: dense, SSM, hybrid) runs;
-    a sixth arch brings the MoE family, which is not ported."""
+    """The CLI's registry of four archs (dense, SSM, hybrid) runs, and so
+    does ``default_registry(6)``, the function's own default, which adds
+    qwen2.5-32b and granite-moe-1b-a400m (MoE); its models all build."""
     assert T_serve.main(["--device", "cpu", "--requests", "8"]) == 0
     assert "KiSS(80-20)" in capsys.readouterr().out
     assert list(T_serve.default_registry(4)) == [
         "starcoder2-3b", "rwkv6-7b", "zamba2-1.2b", "glm4-9b"]
-    with pytest.raises(NotImplementedError, match="moe.py"):
-        T_serve.default_registry(6)
+    six = T_serve.default_registry()
+    assert list(six) == list(T_serve.default_registry(4)) + [
+        "qwen2.5-32b", "granite-moe-1b-a400m"]
+    assert all(init_params(cfg, device="cpu") for cfg in six.values())
+    assert T_serve.main(["--device", "cpu", "--n-archs", "6",
+                         "--requests", "12"]) == 0
+    assert "drop_pct" in capsys.readouterr().out
 
 
 def test_batcher_groups_and_pads():
@@ -311,7 +347,7 @@ def test_default_device_is_cuda(monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", SIZED)
+@pytest.mark.parametrize("arch", SIZED + ("granite-moe-1b-a400m",))
 def test_container_on_card_launches_the_kernels(arch):
     """Warm-up (one prefill, one decode) and a generate of 4 tokens: per
     prefill B3 once an attention position and B4 once a Mamba layer; per
