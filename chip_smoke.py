@@ -151,7 +151,25 @@ Phases, each printing its own lines:
    positions), whisper with stub audio frames against the f32 plain
    ``decode_train`` (control: a causal cross-attention), kimi-k2 against
    its bf16 plain prefill and decode steps (control: no shared expert);
-11. one line of seconds a phase and the total, one JSON line of kernel
+11. training (``training_phase``): B3, B4 and B5 inside their autograd
+   Functions at the training runs' shapes, forward and every input's
+   grad against autograd of the plain versions (``GRAD_FN_TOL``), each
+   explicit backward's time beside its forward kernel's and SDPA's
+   forward + backward; zamba2-1.2b at full width cut to ``GRAD_LAYERS``
+   layers, where every param leaf must get a finite gradient through the
+   Functions within ``GRAD_TOL`` of the f32 plain path (the bf16 plain
+   path beside it), ``remat`` on equal to off, and a control: the kernels
+   without their Functions leave leaves with no gradient; then three
+   runs through ``launch.train`` with every count zeroed just before and
+   read just after: (a) ``main`` at ``--arch 100m`` (f32, 40 steps, a
+   checkpoint that must restore bitwise into the params it was written
+   from; the loss must fall), (b) zamba2-1.2b at its full config and (c)
+   rwkv6-7b at full width and ``RWKV_TRAIN_LAYERS`` layers, both bf16
+   with ``remat``, 3 steps each; each run's launches must equal its
+   layers of each kind x steps (x 2 with ``remat``), and prints its step
+   seconds, tokens/s, the device's busy share of a profiled step and its
+   peak memory;
+12. one line of seconds a phase and the total, one JSON line of kernel
    measurements, one of path numbers, then ``{"ok": true, ...}``.
 
 Any mismatch or fault exits non-zero; no phase's failure is caught.
@@ -162,7 +180,9 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -597,6 +617,18 @@ def device_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_s(events) -> float:
+    """Summed device time, in seconds, of the kernels and copies in a
+    CPU + CUDA profile's ``key_averages()``: the device rows only, as
+    torch's own table sums them.  A CPU op's row repeats, as its self
+    device time, the kernels it launched, so a sum over every row counts
+    each kernel twice."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation) / 1e6
 
 
 def call_ms(fn, iters: int) -> float:
@@ -2295,7 +2327,7 @@ def busy_phase(dev, trace) -> dict:
             records = sum(e.count for e in events
                           if e.device_type == DeviceType.CUDA)
             top = sorted(events, key=dev_us, reverse=True)[:3]
-            busy = sum(dev_us(e) for e in events) / 1e6 / wall
+            busy = device_s(events) / wall
             out[f"{flavour}/{mode}"] = dict(
                 busy=busy, device_records_per_event=records / n_events,
                 b1_records=b1)
@@ -2679,7 +2711,7 @@ def serving_busy(container, n_new: int = 9) -> dict:
         return getattr(e, "self_device_time_total", 0.0)
     events = prof.key_averages()
     top = sorted(events, key=dev_us, reverse=True)[:4]
-    share = sum(dev_us(e) for e in events) / 1e6 / wall
+    share = device_s(events) / wall
     print(f"serve busy {container.cfg.name}: device busy "
           f"{100 * share:.1f}% of {wall * 1e3:.1f} ms wall for a prefill "
           f"and {n_new - 1} decode steps; top device time: " + "; ".join(
@@ -3199,6 +3231,438 @@ def families_phase(dev) -> dict:
     return dict(models=out, launches=total)
 
 
+# ---------------------------------------------------------------------------
+# training (A16): B3-B5 inside their autograd Functions, launch.train
+# ---------------------------------------------------------------------------
+
+#: Each kernel's Function against autograd of its plain version: per
+#: input, max |grad - plain grad| over max |plain grad|.  f32: both run
+#: in f32 and differ in the order of their sums.  bf16: both round the
+#: grads to bf16 and the plain attention's autograd also rounds dP to
+#: bf16; the kernels' own bf16 bound (``ATTN_TOL``).
+GRAD_FN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: The Function checks, at the training runs' shapes: B3 at (a)'s 100m
+#: model (f32, 12 heads over 4) and at (b)'s zamba2 shared block (bf16,
+#: 32 heads of 64, 512 tokens), B4 at (b)'s Mamba layers, B5 at (c)'s
+#: rwkv6 layers (256 tokens).
+TRAIN_FLASH = {"train-100m": ((8, 128, 128, 12, 4, 64, True, None, 0),
+                              torch.float32),
+               "train-zamba2": ((2, 512, 512, 32, 32, 64, True, None, 0),
+                                torch.bfloat16)}
+TRAIN_SSM = ("train-zamba2", (2, 512, 64, 64, 64, False))
+TRAIN_WKV = ("train-rwkv6", (2, 256, 64, False))
+#: (a) ``launch.train.main`` at ``--arch 100m``; (b) zamba2-1.2b at its
+#: full config; (c) rwkv6-7b at full width cut to ``RWKV_TRAIN_LAYERS``
+#: of its 32 layers (AdamW's state for all 7.6B params is ~91 GB).
+TRAIN_100M = dict(steps=40, batch=8, seq=128)
+TRAIN_ZAMBA = dict(steps=3, batch=2, seq=512)
+TRAIN_RWKV = dict(steps=3, batch=2, seq=256)
+RWKV_TRAIN_LAYERS = 4
+#: The whole-model gradient check: zamba2-1.2b at full width cut to 6
+#: layers (5 Mamba layers, the shared attention block at the sixth), a
+#: 128-token batch of 2.
+GRAD_LAYERS = 6
+GRAD_SEQ = 128
+#: Bounds on that check, against the plain path in f32 (every weight
+#: cast to f32, every kernel replaced by its plain version): the loss's
+#: relative error and each leaf's relative L2 error.  The bf16 path
+#: drifts from f32 with or without the kernels, so the bounds sit above
+#: the bf16 *plain* path's drift, as ``RWKV_LOGITS_TOL`` does: measured
+#: (NVIDIA H100 80GB HBM3, 700.00 W), the bf16 plain path's loss is off
+#: by 1.35e-4 and its worst leaf (``layers/4/ssm/dt_bias``) by 5.56%;
+#: the kernel path's by 5.52e-5 and 5.56%.  A leaf the kernels cut off
+#: (C4) has no gradient at all, and the check fails on that first.
+GRAD_LOSS_TOL = 1e-3
+GRAD_TOL = 0.10
+
+
+def grad_rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    w = want.float()
+    return float((got.float() - w).abs().max()
+                 / w.abs().max().clamp(min=1e-30))
+
+
+def rel_l2(got, want) -> float:
+    w = want.float()
+    return float((got.float() - w).norm() / w.norm().clamp(min=1e-30))
+
+
+def function_check(what, dtype, fn, plain, bwd, inputs, fwd_tol, seed):
+    """``fn`` (a kernel's Function) against ``plain`` on ``inputs``: the
+    outputs within the forward's tolerance, then the grads of every input
+    for one random upstream grad of every output against autograd of
+    the plain version (``GRAD_FN_TOL``).  Times the explicit backward
+    ``bwd`` (device, and back to back with its host cost) beside the
+    forward kernel."""
+    ins = [t.detach().clone().requires_grad_() for t in inputs]
+    outs, want = fn(*ins), plain(*ins)
+    outs, want = (o if isinstance(o, tuple) else (o,) for o in (outs, want))
+    fwd_err = max(close_check(o.detach(), w.detach(), dtype,
+                              f"{what} forward {i}", fwd_tol)
+                  for i, (o, w) in enumerate(zip(outs, want)))
+    gen = torch.Generator(device=outs[0].device).manual_seed(seed)
+    ups = [torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+           for o in outs]
+    got = torch.autograd.grad(outs, ins, ups)
+    ref = torch.autograd.grad(want, ins, ups)
+    rels = [grad_rel(g, r) for g, r in zip(got, ref)]
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{what}: non-finite grad")
+    check(max(rels) <= GRAD_FN_TOL[dtype], f"{what}: grads off autograd "
+          f"of the plain version by {rels} > {GRAD_FN_TOL[dtype]}")
+    del outs, want, got, ref
+    plain_ins = [t.detach() for t in ins]
+    bwd_ms = device_ms(lambda: bwd(*plain_ins, *ups), 3)
+    bwd_call = call_ms(lambda: bwd(*plain_ins, *ups), 3)
+    return dict(dtype=str(dtype), forward_max_abs_err=fwd_err,
+                grad_rel_err=rels, tolerance=GRAD_FN_TOL[dtype],
+                bwd_ms=bwd_ms, bwd_call_ms=bwd_call)
+
+
+def function_phase(dev) -> dict:
+    """B3, B4 and B5 inside their autograd Functions at the training
+    runs' shapes, against autograd of the plain versions; each backward's
+    time beside its forward kernel's, and SDPA's forward + backward at
+    B3's shapes as the yardstick for a later hand-written backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_cuda, flash_attention_plain)
+    from repro_torch.kernels.ssm_scan import (ssm_scan_bwd, ssm_scan_cuda,
+                                              ssm_scan_plain)
+    from repro_torch.kernels.wkv6 import wkv6_bwd, wkv6_cuda, wkv6_plain
+    rows = {}
+    for name, (shape, dtype) in TRAIN_FLASH.items():
+        b, sq, skv, h, kv, d = shape[:6]
+        q, k, v = flash_case(shape, dtype, dev, sq + 1)
+        row = function_check(
+            f"flash_attention {name}", dtype,
+            lambda q, k, v: ops.FlashAttention.apply(q, k, v, True, None,
+                                                     None, 0),
+            flash_attention_plain,
+            lambda q, k, v, do: flash_attention_bwd(q, k, v, do),
+            (q, k, v), None, 1)
+        row["fwd_ms"] = device_ms(lambda: flash_attention_cuda(q, k, v), 20)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        do = torch.randn(qt.shape, device=dev).to(dtype)
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+            torch.autograd.grad(o, (qt, kt, vt), do)
+        row["sdpa_fwd_bwd_ms"] = device_ms(sdpa, 10)
+        rows[f"flash_attention {name}"] = dict(row, dims=list(shape[:6]))
+    name, shape = TRAIN_SSM
+    args, _ = ssm_case(shape, torch.bfloat16, dev, 3)
+    row = function_check(
+        f"ssm_scan {name}", torch.bfloat16,
+        lambda *t: ops.SSMScan.apply(*t, None),
+        lambda *t: ssm_scan_plain(*t),
+        lambda x, dt, a, b, c, dy, dh: ssm_scan_bwd(x, dt, a, b, c, None,
+                                                   dy, dh),
+        args, SCAN_TOL[torch.bfloat16], 2)
+    row["fwd_ms"] = device_ms(lambda: ssm_scan_cuda(*args), 20)
+    rows[f"ssm_scan {name}"] = dict(row, dims=list(shape))
+    name, shape = TRAIN_WKV
+    args, _ = wkv_case(shape, torch.bfloat16, dev, 4)
+    row = function_check(
+        f"wkv6 {name}", torch.bfloat16,
+        lambda *t: ops.WKV6.apply(*t, None), lambda *t: wkv6_plain(*t),
+        lambda r, k, v, w, u, dy, ds: wkv6_bwd(r, k, v, w, u, None, dy, ds),
+        args, SCAN_TOL[torch.bfloat16], 3)
+    row["fwd_ms"] = device_ms(lambda: wkv6_cuda(*args), 20)
+    rows[f"wkv6 {name}"] = dict(row, dims=list(shape))
+    for name, row in rows.items():
+        sdpa = row.get("sdpa_fwd_bwd_ms")
+        print(f"function {name} {row['dims']} {row['dtype']}: forward == "
+              f"plain (max abs err {row['forward_max_abs_err']:.2e}), grads "
+              f"== autograd of the plain version (max rel err "
+              f"{max(row['grad_rel_err']):.2e} <= {row['tolerance']}); "
+              f"backward {row['bwd_ms']:.3f} ms device "
+              f"({row['bwd_call_ms']:.3f} ms a call back to back) against "
+              f"the forward kernel's {row['fwd_ms'] * 1e3:.2f} us"
+              + (f"; sdpa forward + backward {sdpa:.3f} ms" if sdpa else ""),
+              flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def model_grads(cfg, params, batch, remat):
+    """(loss, {key: grad or None}) of ``loss_fn`` over every leaf."""
+    from repro_torch._tree import tree_leaves, tree_unflatten
+    from repro_torch.checkpoint.convert import flatten
+    from repro_torch.models import loss_fn
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    total, _ = loss_fn(cfg, tree_unflatten(params, live), batch,
+                       remat=remat)
+    grads = torch.autograd.grad(total, live, allow_unused=True)
+    return total.detach(), dict(zip(flatten(params), grads))
+
+
+def model_grad_phase(dev) -> dict:
+    """zamba2-1.2b at full width and ``GRAD_LAYERS`` layers (bf16): every
+    leaf gets a finite gradient through B3's and B4's Functions (C4), the
+    loss and each leaf's gradient within ``GRAD_LOSS_TOL`` / ``GRAD_TOL``
+    of the f32 plain path (the bf16 plain path beside it, which sets the
+    bounds), ``remat`` on equal to off, and a control: the kernels called
+    without their Functions (the fault C4 repaired) leave leaves with no
+    gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                              n_layers=GRAD_LAYERS)
+    params = init_params(cfg, 5, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, GRAD_SEQ + 1),
+                         generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.arange(GRAD_SEQ, dtype=torch.int32,
+                       device=dev)[None].expand(2, GRAD_SEQ)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(), "positions": pos}
+    loss, grads = model_grads(cfg, params, batch, remat=False)
+    missing = sorted(k for k, g in grads.items() if g is None)
+    check(not missing, f"C4: no gradient for {missing}")
+    bad = sorted(k for k, g in grads.items()
+                 if not bool(torch.isfinite(g).all()))
+    check(not bad, f"non-finite gradient for {bad}")
+    loss_r, grads_r = model_grads(cfg, params, batch, remat=True)
+    remat_bitwise = bool(torch.equal(loss, loss_r)) and all(
+        torch.equal(grads[k], grads_r[k]) for k in grads)
+    remat_err = max(rel_l2(grads_r[k], grads[k]) for k in grads)
+    check(torch.equal(loss, loss_r), f"remat changes the loss: "
+          f"{float(loss)} != {float(loss_r)}")
+    check(remat_err <= 1e-2, f"remat moves a gradient by {remat_err}")
+    del grads_r
+    saved = ops.needs_grad
+    ops.needs_grad = lambda *t: False       # the kernels bare, as before
+    try:
+        _, grads_c = model_grads(cfg, params, batch, remat=False)
+    finally:
+        ops.needs_grad = saved
+    control = sorted(k for k, g in grads_c.items() if g is None)
+    check(bool(control), "control: the bare kernels left every leaf a "
+          "gradient")
+    del grads_c
+    with plain_kernels():
+        loss_pb, grads_pb = model_grads(cfg, params, batch, remat=False)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        loss_f, grads_f = model_grads(cfg32, cast_f32(params), batch,
+                                      remat=False)
+    errs = {k: rel_l2(g, grads_f[k]) for k, g in grads.items()}
+    plain_errs = {k: rel_l2(g, grads_f[k]) for k, g in grads_pb.items()}
+    kern_vs_plain = {k: rel_l2(g, grads_pb[k]) for k, g in grads.items()}
+    loss_err = abs(float(loss) - float(loss_f)) / abs(float(loss_f))
+    plain_loss_err = abs(float(loss_pb) - float(loss_f)) / abs(float(loss_f))
+    worst = sorted(errs, key=errs.get, reverse=True)[:3]
+    print(f"grads zamba2-1.2b ({GRAD_LAYERS} layers, full width, bf16, "
+          f"seq {GRAD_SEQ}): all {len(grads)} leaves have a finite "
+          f"gradient through the Functions; loss {float(loss):.5f} against "
+          f"f32 plain {float(loss_f):.5f} (rel {loss_err:.2e}; bf16 plain "
+          f"{plain_loss_err:.2e}; tolerance {GRAD_LOSS_TOL}); leaf rel L2 "
+          f"against f32 plain: max {max(errs.values()):.4f} (bf16 plain "
+          f"path: max {max(plain_errs.values()):.4f}; tolerance "
+          f"{GRAD_TOL}), worst {[(k, round(errs[k], 4)) for k in worst]}; "
+          f"against bf16 plain: max {max(kern_vs_plain.values()):.4f}; "
+          f"remat on == off: loss bitwise, grads "
+          f"{'bitwise' if remat_bitwise else f'within {remat_err:.2e}'}; "
+          f"control (kernels without their Functions): {len(control)} of "
+          f"{len(grads)} leaves get no gradient, e.g. {control[:3]}",
+          flush=True)
+    check(loss_err <= GRAD_LOSS_TOL, f"loss off f32 plain by {loss_err}")
+    check(max(errs.values()) <= GRAD_TOL, f"a leaf's gradient is off f32 "
+          f"plain by {max(errs.values())} > {GRAD_TOL}: {worst}")
+    out = dict(layers=GRAD_LAYERS, seq=GRAD_SEQ, leaves=len(grads),
+               loss=float(loss), loss_f32_plain=float(loss_f),
+               loss_rel_err=loss_err, plain_bf16_loss_rel_err=plain_loss_err,
+               max_leaf_rel_l2=max(errs.values()),
+               plain_bf16_max_leaf_rel_l2=max(plain_errs.values()),
+               max_leaf_rel_l2_vs_plain_bf16=max(kern_vs_plain.values()),
+               worst=[(k, errs[k], plain_errs[k]) for k in worst],
+               remat_bitwise=remat_bitwise, remat_max_rel_l2=remat_err,
+               control_no_grad=len(control),
+               tolerance=dict(loss=GRAD_LOSS_TOL, leaf=GRAD_TOL))
+    del params, grads, grads_pb, grads_f
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class StepClock:
+    """Stands in for ``launch.train.train_step``: each step's wall time to
+    a synchronize, its loss, and one step (``profile_step``) under the
+    profiler (CUDA records only) for the device's busy share (summed
+    device time of every kernel and copy over that step's wall) and the
+    kernels with the most device time."""
+
+    def __init__(self, step_fn, profile_step):
+        self.step_fn, self.profile_step = step_fn, profile_step
+        self.walls, self.losses, self.busy = [], [], None
+
+    def __call__(self, *args, **kw):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        i = len(self.walls)
+        # the device's records only: recording every CPU op as well
+        # doubles the step's wall on the host
+        prof = profile(activities=[ProfilerActivity.CUDA]) \
+            if i == self.profile_step else contextlib.nullcontext()
+        with prof:
+            t0 = time.perf_counter()
+            out = self.step_fn(*args, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if i == self.profile_step:
+            def dev_us(e):
+                return getattr(e, "self_device_time_total", 0.0)
+            events = prof.key_averages()
+            dev_s = device_s(events)
+            top = sorted(events, key=dev_us, reverse=True)[:5]
+            self.busy = dict(share=dev_s / wall, wall_s=wall,
+                             device_s=dev_s,
+                             top=[(e.key[:60], dev_us(e) / 1e3)
+                                  for e in top])
+        self.walls.append(wall)
+        self.losses.append(float(out[2]["loss"]))
+        return out
+
+
+def train_run(what, run, kernels, steps, tokens, profile_step) -> dict:
+    """One training run through ``launch.train`` (``run()`` calls its
+    ``main`` or ``run``), with every kernel count zeroed just before and
+    read just after, the steps timed by ``StepClock``, the params handed
+    to ``save_checkpoint`` kept, and the peak device memory."""
+    from repro_torch.launch import train as T
+    clock, saved = StepClock(T.train_step, profile_step), {}
+    real_save = T.save_checkpoint
+
+    def keep(directory, step, tree):
+        saved["tree"] = tree
+        return real_save(directory, step, tree)
+    T.train_step, T.save_checkpoint = clock, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for k in kernels.values():          # the training path starts here
+            k.launches = 0
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}  # ... ends
+    finally:
+        T.train_step, T.save_checkpoint = clock.step_fn, real_save
+    check(len(clock.walls) == steps, f"{what}: {len(clock.walls)} steps")
+    check(all(np.isfinite(clock.losses)), f"{what}: loss {clock.losses}")
+    timed = [w for i, w in enumerate(clock.walls)
+             if i and i != profile_step]
+    step_s = float(np.mean(timed))
+    out = dict(steps=steps, wall_s=wall, first_step_s=clock.walls[0],
+               step_s=step_s, tokens_per_s=tokens / step_s,
+               losses=clock.losses, busy=clock.busy, launches=launches,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"train {what}: {steps} steps, loss {clock.losses[0]:.4f} -> "
+          f"{clock.losses[-1]:.4f}; step {step_s:.3f} s "
+          f"({out['tokens_per_s']:.0f} tokens/s; the first "
+          f"{clock.walls[0]:.2f} s); device busy "
+          f"{100 * clock.busy['share']:.1f}% of a profiled step "
+          f"({clock.busy['wall_s']:.3f} s; top device time: "
+          + "; ".join(f"{k} {ms:.2f} ms" for k, ms in clock.busy["top"])
+          + f"); peak {out['peak_gb']:.2f} GB; launches {launches}",
+          flush=True)
+    return out, saved.get("tree")
+
+
+def training_phase(dev) -> dict:
+    """Training (A16) on the card: the Functions' checks
+    (``function_phase``), the whole-model gradient check
+    (``model_grad_phase``), then three runs through ``launch.train``:
+    (a) ``main`` at ``--arch 100m`` (f32, B3 on ``flash_fma_kernel``)
+    with a checkpoint, whose loss must fall and whose checkpoint must
+    restore bitwise into the params it was written from; (b) zamba2-1.2b
+    at its full config (bf16, ``remat``: B3 on ``flash_wgmma_kernel``, B4
+    on ``ssm_scan_mma_kernel``); (c) rwkv6-7b at full width and
+    ``RWKV_TRAIN_LAYERS`` layers (bf16, ``remat``: B5).  Each run's
+    launches must equal the layers of each kind x steps, twice with
+    ``remat`` (the forward runs again in the backward pass); the
+    backward passes launch no kernel."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    from repro_torch.launch import train as T
+    kernels = dict(flash_attention=flash_attention_cuda,
+                   ssm_scan=ssm_scan_cuda, wkv6=wkv6_cuda)
+    functions = function_phase(dev)
+    grads = model_grad_phase(dev)
+    runs, total = {}, dict.fromkeys(kernels, 0)
+
+    a = TRAIN_100M
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        runs["100m"], live = train_run(
+            "repro-100m", lambda: T.main([
+                "--arch", "100m", "--steps", str(a["steps"]), "--batch",
+                str(a["batch"]), "--seq", str(a["seq"]), "--ckpt-dir",
+                str(ckpt_dir)]), kernels, a["steps"], a["batch"] * a["seq"],
+            a["steps"] // 2)
+    print(log.getvalue(), end="", flush=True)
+    last = next(line for line in reversed(log.getvalue().splitlines())
+                if line.startswith("loss "))       # main's closing line
+    losses = runs["100m"]["losses"]
+    check(last.endswith("(improved)") and losses[-1] < losses[0],
+          f"100m: the loss did not fall ({last})")
+    cfg = T.train_100m_config()
+    check(runs["100m"]["launches"] == dict(
+        flash_attention=cfg.n_layers * a["steps"], ssm_scan=0, wkv6=0),
+        f"100m launches {runs['100m']['launches']}")
+    back = restore_checkpoint(str(ckpt_dir), a["steps"], live)
+    from repro_torch.checkpoint.convert import flatten
+    fl, fb = flatten(live), flatten(back)
+    check(sorted(fl) == sorted(fb) and all(
+        fb[k].dtype == v.dtype and torch.equal(fb[k], v)
+        for k, v in fl.items()), "the checkpoint does not restore bitwise")
+    runs["100m"]["checkpoint"] = f"{len(fl)} leaves restored bitwise"
+    print(f"train repro-100m: checkpoint ckpt_{a['steps']:08d}.npz "
+          f"restores {len(fl)} leaves bitwise into the live params",
+          flush=True)
+    del live, back, fl, fb
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    for key, cfg, spec in (
+            ("zamba2-1.2b", get_config("zamba2-1.2b"), TRAIN_ZAMBA),
+            ("rwkv6-7b", dataclasses.replace(get_config("rwkv6-7b"),
+                                             n_layers=RWKV_TRAIN_LAYERS),
+             TRAIN_RWKV)):
+        runs[key], _ = train_run(
+            f"{key} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.dtype}, "
+            f"remat)",
+            lambda: T.run(cfg, steps=spec["steps"],
+                          global_batch=spec["batch"], seq_len=spec["seq"],
+                          log_every=1, remat=True),
+            kernels, spec["steps"], spec["batch"] * spec["seq"],
+            spec["steps"] - 1)
+        kinds = cfg.layer_kinds()
+        want = dict(flash_attention=2 * spec["steps"] * kinds.count("attn"),
+                    ssm_scan=2 * spec["steps"] * kinds.count("mamba"),
+                    wkv6=2 * spec["steps"] * kinds.count("rwkv"))
+        check(runs[key]["launches"] == want,
+              f"{key}: launches {runs[key]['launches']} != {want}")
+    for r in runs.values():
+        for n in total:
+            total[n] += r["launches"][n]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(functions=functions, grads=grads, runs=runs,
+                launches=total)
+
+
 def build_phase(_build) -> None:
     """Build every kernel, one ``nvcc`` each, all started together."""
     from repro_torch.kernels import (decode_attention, flash_attention,
@@ -3287,6 +3751,7 @@ def main() -> int:
     eviction = phase("eviction", eviction_phase, dev, serving["sizes"])
     logits = phase("logits", logits_phase, dev)
     families = phase("families", families_phase, dev)
+    training = phase("training", training_phase, dev)
     total_s = time.perf_counter() - t_start
     print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                  seconds.items())
@@ -3322,7 +3787,8 @@ def main() -> int:
                    "src/repro/kernels/flash_attention.py:26",
                    attention["flash"], "path-starcoder2",
                    dict(serving=serving["launches"]["flash_attention"],
-                        families=families["launches"]["flash_attention"]),
+                        families=families["launches"]["flash_attention"],
+                        training=training["launches"]["flash_attention"]),
                    FLASH_KERNELS[torch.bfloat16]),
                kernel_entry(
                    "decode_attention",
@@ -3336,14 +3802,16 @@ def main() -> int:
                    "ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                    "src/repro/kernels/ssm_scan.py:29", scans["ssm_scan"],
                    "path-zamba2",
-                   dict(serving=serving["launches"]["ssm_scan"]),
+                   dict(serving=serving["launches"]["ssm_scan"],
+                        training=training["launches"]["ssm_scan"]),
                    SCAN_KERNELS["ssm_scan"][torch.bfloat16]),
                # most of B5's launches are decode steps (S = 1)
                kernel_entry(
                    "wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
                    "src/repro/kernels/wkv6.py:24", scans["wkv6"],
                    "path-rwkv6-decode",
-                   dict(serving=serving["launches"]["wkv6"]),
+                   dict(serving=serving["launches"]["wkv6"],
+                        training=training["launches"]["wkv6"]),
                    SCAN_KERNELS["wkv6"][torch.bfloat16])]
     print("kernels: " + json.dumps([e["name"] for e in entries]))
     print(json.dumps({"kernels": entries}))
@@ -3369,6 +3837,8 @@ def main() -> int:
                                             "peak_gb", "busy")},
         "eviction": eviction["rows"], "logits": logits,
         "families": families["models"],
+        "training": {k: training[k] for k in ("functions", "grads",
+                                              "runs")},
         "phase_seconds": seconds, "seconds": total_s, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,45 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._tree import flatten, map_with_keys
 from ..models import init_params
 from ..models.config import ModelConfig
 from ..models.transformer import _device
-
-
-def _children(tree):
-    if isinstance(tree, dict):
-        return tree.items()
-    if isinstance(tree, (list, tuple)):
-        return enumerate(tree)
-    return None
-
-
-def flatten(tree, prefix: str = "") -> dict:
-    """Nested dicts and lists -> ``{"a/0/c": leaf}``; a ``None`` has no
-    key."""
-    if tree is None:
-        return {}
-    children = _children(tree)
-    if children is None:
-        return {prefix: tree}
-    out = {}
-    for k, v in children:
-        out.update(flatten(v, f"{prefix}/{k}" if prefix else str(k)))
-    return out
-
-
-def _map(tree, fn, prefix: str = ""):
-    """``tree`` with each leaf replaced by ``fn(key, leaf)`` (keys as
-    :func:`flatten` makes them); ``None`` stays."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _map(v, fn, f"{prefix}/{k}" if prefix else str(k))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn, f"{prefix}/{i}" if prefix else str(i))
-                for i, v in enumerate(tree)]
-    return fn(prefix, tree)
 
 
 def _tensor(arr: np.ndarray, want: torch.Tensor, key: str) -> torch.Tensor:
@@ -104,15 +69,17 @@ def params_from_reference(tree, cfg: ModelConfig, device=None) -> dict:
         return _tensor(arr, leaf, key)
 
     stacked = stacked_keys(cfg, want)
-    out = _map({k: v for k, v in want.items() if k not in stacked},
-               lambda key, leaf: take(key, leaf, tuple(leaf.shape)).to(dev))
+    out = map_with_keys(
+        {k: v for k, v in want.items() if k not in stacked},
+        lambda key, leaf: take(key, leaf, tuple(leaf.shape)).to(dev))
     for name in stacked:
         n = len(want[name])
         layer = want[name][0] if n else {}
         full = {sub: take(f"{name}/{sub}", leaf, (n, *leaf.shape))
                 for sub, leaf in flatten(layer).items()}
-        out[name] = [_map(layer, lambda sub, _: full[sub][i].clone()
-                          .to(dev)) for i in range(n)]
+        out[name] = [map_with_keys(
+            layer, lambda sub, _: full[sub][i].clone().to(dev))
+            for i in range(n)]
     extra = sorted(set(flat) - seen)
     if extra:
         raise KeyError(f"reference params the port does not know: {extra}")

@@ -16,7 +16,9 @@ B5 wkv6                  repro/kernels/wkv6.py                ``wkv6_cuda`` /
 =======================  ===================================  =========================
 
 :mod:`.ops` routes each entry point by the tensor's device: the kernel on
-CUDA, the plain version on the CPU.  Kernels are built from ``csrc/`` at
+CUDA, the plain version on the CPU.  Where a gradient is needed, B3, B4
+and B5 run inside autograd Functions whose backward is plain torch
+(``flash_attention_bwd``, ``ssm_scan_bwd``, ``wkv6_bwd``).  Kernels are built from ``csrc/`` at
 first use (:mod:`._build`); importing this package builds nothing.  Each
 wrapper counts its launches in a ``launches`` attribute.
 """

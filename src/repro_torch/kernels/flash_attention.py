@@ -13,7 +13,10 @@ causal with query position ``q_offset + i``, and optionally only the last
   TMA), f32 runs ``flash_fma_kernel`` (f32 FMAs on the CUDA cores, which
   the f32 tolerance of 2e-5 needs: TF32 tensor cores keep ~3 digits);
 * :func:`flash_attention_plain` is the oracle in plain torch,
-  query-chunked as the reference's is, on any device.
+  query-chunked as the reference's is, on any device;
+* :func:`flash_attention_bwd` is its gradient in plain torch, the
+  backward of the kernel's autograd Function (``kernels.ops``): the
+  reference has no backward kernel.
 
 ``repro_torch.kernels.ops.flash_attention`` takes the kernel for CUDA
 tensors and the plain version for CPU tensors, and nothing else.
@@ -64,6 +67,50 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
         o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
         out.append(o.reshape(b, qc.shape[1], h, d))
     return torch.cat(out, dim=1).to(q.dtype)
+
+
+def flash_attention_bwd(q, k, v, do, *, causal=True, window=None,
+                        scale=None, q_offset=0, chunk=1024):
+    """The gradient of :func:`flash_attention_plain` in plain torch:
+    (dq, dk, dv) in the inputs' dtypes for the upstream grad ``do``.
+
+    The reference has no backward kernel, so this is the standard
+    softmax-attention gradient, recomputed from q, k and v a chunk of
+    ``chunk`` queries at a time: scores and softmax in f32 as the forward
+    takes them (q scaled in its own dtype), ``dP = dO V^T``,
+    ``dS = P (dP - rowsum(P dP))``, then ``dq = dS K scale``,
+    ``dk = dS^T (q scale)``, ``dv = P^T dO``, summed over the query heads
+    of each kv head (GQA).  Every product runs in f32."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = d ** -0.5 if scale is None else scale
+    qs = (q * scale).reshape(b, sq, kv, g, d).float()
+    dor = do.reshape(b, sq, kv, g, d).float()
+    kpos = torch.arange(skv, device=q.device)
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros(b, skv, kv, d, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dq = []
+    for c0 in range(0, sq, chunk):
+        qc, dc = qs[:, c0:c0 + chunk], dor[:, c0:c0 + chunk]
+        qpos = torch.arange(c0, c0 + qc.shape[1], device=q.device) + q_offset
+        s = torch.einsum("bqkgd,bskd->bkgqs", qc, kf)
+        mask = torch.ones(qc.shape[1], skv, dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dc, vf)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dv += torch.einsum("bkgqs,bqkgd->bskd", p, dc)
+        dk += torch.einsum("bkgqs,bqkgd->bskd", ds, qc)
+        dq.append(torch.einsum("bkgqs,bskd->bqkgd", ds, kf)
+                  .reshape(b, qc.shape[1], h, d))
+    dq = torch.cat(dq, dim=1) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _library():

@@ -15,6 +15,9 @@ f32.
   ``ssm_scan_fma_kernel`` (f32 FMAs on the CUDA cores);
 * :func:`ssm_scan_plain` is the oracle in plain torch: the sequential
   recurrence in f32, on any device;
+* :func:`ssm_scan_bwd` is its gradient in plain torch (chunked), the
+  backward of the kernel's autograd Function (``kernels.ops``): the
+  reference has no backward kernel;
 * :func:`ssm_scan_chunked_plain` mirrors the kernels' arithmetic in plain
   torch (the same chunks and, for bf16 inputs, the same hi + lo bf16
   splits), so that the CPU tests can show the rounding choice against the
@@ -98,6 +101,91 @@ def ssm_scan_chunked_plain(x, dt, a, b, c, *, h0=None, chunk=CHUNK):
         h = torch.exp(sc[..., -1])[..., None, None] * h + \
             bc.transpose(-1, -2) @ two(w[..., None] * xc)
     return torch.cat(ys, dim=2).transpose(1, 2).to(x.dtype), h
+
+
+def _rev_cumsum(t, dim=-1):
+    return torch.flip(torch.cumsum(torch.flip(t, (dim,)), dim), (dim,))
+
+
+def ssm_scan_bwd(x, dt, a, b, c, h0, dy, dh, *, chunk=CHUNK):
+    """The gradient of :func:`ssm_scan_plain` in plain torch, for the
+    upstream grads ``dy`` (of y) and ``dh`` (of the final state): (dx,
+    ddt, da, db, dc, dh0), each in its input's dtype (``dh0`` None when
+    ``h0`` is).
+
+    The reference has no backward kernel.  This is the reverse-time
+    recurrence over the f32 state, taken a chunk of ``chunk`` steps at a
+    time in the SSD matrix form (the kernel's chunks): within a chunk,
+    with ``s`` the inclusive cumsum of ``a dt``, ``L[t,j] = exp(s_t -
+    s_j)`` (j <= t), ``G = (C B^T) o L o dt_j``, ``w_j = exp(s_T - s_j)
+    dt_j``,
+
+        y = G X + exp(s) o (C h_in),  h_out = exp(s_T) h_in + B^T (w o X);
+
+    the chunk states ``h_in`` are recomputed forward, the state grads
+    ``dh_out`` run backward chunk by chunk (``dh_in = C^T (exp(s) o dy) +
+    exp(s_T) dh_out``), and every other term is batched over the chunks.
+    The grad of ``s`` folds into dt and a through a reverse cumsum.  The
+    sequence is padded to whole chunks with dt = 0 (decay 1, no input)."""
+    bsz, s, hh, p = x.shape
+    n = b.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t, width=None):          # [B,S,H(,W)] -> [B,H,nc,T(,W)]
+        t = t.float().transpose(1, 2)
+        if pad:
+            t = torch.nn.functional.pad(
+                t, (0, 0, 0, pad) if width else (0, pad))
+        return t.reshape(bsz, hh, nc, chunk, *((width,) if width else ()))
+    xx, bb, cc, dyy = chunks(x, p), chunks(b, n), chunks(c, n), chunks(dy, p)
+    dtt = chunks(dt)
+    af = a.float()[None, :, None, None]
+    sc = torch.cumsum(af * dtt, dim=-1)                    # [B,H,nc,T]
+    lower = torch.ones(chunk, chunk, dtype=torch.bool,
+                       device=x.device).tril()
+    ell = torch.where(lower, torch.exp(torch.where(
+        lower, sc[..., :, None] - sc[..., None, :], 0.0)), 0.0)
+    m = cc @ bb.transpose(-1, -2)                          # C B^T
+    wgt = ell * dtt[..., None, :]
+    g = m * wgt
+    es = torch.exp(sc)
+    w = torch.exp(sc[..., -1:] - sc) * dtt
+    dec = torch.exp(sc[..., -1])[..., None, None]          # [B,H,nc,1,1]
+    hloc = bb.transpose(-1, -2) @ (w[..., None] * xx)      # [B,H,nc,N,P]
+    hin = torch.empty_like(hloc)
+    h = torch.zeros_like(hloc[:, :, 0]) if h0 is None else h0.float()
+    for i in range(nc):
+        hin[:, :, i] = h
+        h = dec[:, :, i] * h + hloc[:, :, i]
+    z = cc.transpose(-1, -2) @ (es[..., None] * dyy)       # [B,H,nc,N,P]
+    dout = torch.empty_like(hloc)
+    gh = dh.float()
+    for i in reversed(range(nc)):
+        dout[:, :, i] = gh
+        gh = z[:, :, i] + dec[:, :, i] * gh
+    dg = dyy @ xx.transpose(-1, -2)                        # [..., T, T]
+    bd = bb @ dout                                         # [..., T, P]
+    dx = g.transpose(-1, -2) @ dyy + w[..., None] * bd
+    dm = dg * wgt
+    dc = dm @ bb + es[..., None] * (dyy @ hin.transpose(-1, -2))
+    db = dm.transpose(-1, -2) @ cc + w[..., None] * (xx @
+                                                   dout.transpose(-1, -2))
+    dw = (bd * xx).sum(-1)                                 # [B,H,nc,T]
+    ddt = (dg * m * ell).sum(-2) + dw * torch.exp(sc[..., -1:] - sc)
+    q = dg * g
+    ds = q.sum(-1) - q.sum(-2) + es * (dyy * (cc @ hin)).sum(-1) - dw * w
+    ds[..., -1] += (dw * w).sum(-1) + dec[..., 0, 0] * (dout * hin).sum(
+        (-2, -1))
+    rc = _rev_cumsum(ds)
+    ddt = ddt + af * rc
+    da = (rc * dtt).sum((0, 2, 3))
+
+    def back(t, like):                  # [B,H,nc,T(,W)] -> like's layout
+        t = t.reshape(bsz, hh, nc * chunk, *t.shape[4:])[:, :, :s]
+        return t.transpose(1, 2).to(like.dtype)
+    return (back(dx, x), back(ddt, dt), da.to(a.dtype), back(db, b),
+            back(dc, c), None if h0 is None else gh.to(h0.dtype))
 
 
 def ssm_decode_step(x, dt, a, b, c, h):

@@ -13,6 +13,9 @@ u ``[H, D]``; y in r's dtype, the final state ``[B, H, D, D]`` in f32.
   raises on anything else;
 * :func:`wkv6_plain` is the oracle in plain torch: sequential, in f32,
   on any device;
+* :func:`wkv6_bwd` is its gradient in plain torch, the backward of the
+  kernel's autograd Function (``kernels.ops``): the reference has no
+  backward kernel;
 * :func:`wkv6_decode_step` is the reference's single-token update in
   plain torch, kept for parity with ``repro.kernels.ops``; the rwkv6
   model does not call it (nor does the reference's).
@@ -56,6 +59,54 @@ def wkv6_plain(r, k, v, w, u, *, state=None):
         y, st = _step(rf[:, t], kf[:, t], vf[:, t], wf[:, t], u, st)
         ys.append(y)
     return torch.stack(ys, dim=1).to(r.dtype), st
+
+
+def wkv6_bwd(r, k, v, w, u, state, dy, dstate):
+    """The gradient of :func:`wkv6_plain` in plain torch, for the upstream
+    grads ``dy`` (of y) and ``dstate`` (of the final state): (dr, dk, dv,
+    dw, du, dstate0), each in its input's dtype (``dstate0`` None when
+    ``state`` is).
+
+    The reference has no backward kernel.  This is the reverse-time
+    recurrence, in f32: the states ``S_{t-1}`` are recomputed forward,
+    then ``gS_{t-1} = diag(lam_t) gS_t + r_t^T dy_t`` runs backward from
+    ``dstate`` (``lam = exp(-exp(w))``), one step an op pair; the rest is
+    batched over the steps:
+
+        dr_t = S_{t-1} dy_t + u o k_t (v_t . dy_t)
+        dkv_t = gS_t + (r_t o u)^T dy_t,  dk_t = dkv_t v_t,  dv_t = k_t dkv_t
+        dw_t = -exp(w_t) lam_t o rowsum(gS_t o S_{t-1})
+        du = sum_t r_t o k_t (v_t . dy_t)
+
+    Holds two f32 ``[B, S, H, D, D]`` tensors (the states and their
+    grads)."""
+    bsz, s, h, d = r.shape
+    rf, kf, vf, wf, dyf = (t.float() for t in (r, k, v, w, dy))
+    uf = u.float()
+    ew = torch.exp(wf)
+    lam = torch.exp(-ew)[..., None]                        # [B,S,H,D,1]
+    kv = kf[..., :, None] * vf[..., None, :]               # [B,S,H,D,D]
+    prev = torch.empty_like(kv)
+    st = torch.zeros_like(kv[:, 0]) if state is None else state.float()
+    for t in range(s):
+        prev[:, t] = st
+        st = torch.addcmul(kv[:, t], lam[:, t], st)
+    gs = kv                                  # reuse: gS_t overwrites k v
+    rdy = rf[..., :, None] * dyf[..., None, :]
+    g = dstate.float()
+    for t in reversed(range(s)):
+        gs[:, t] = g
+        g = torch.addcmul(rdy[:, t], lam[:, t], g)
+    vdy = (vf * dyf).sum(-1, keepdim=True)                 # [B,S,H,1]
+    dr = torch.einsum("bshde,bshe->bshd", prev, dyf) + uf * kf * vdy
+    du = (rf * kf * vdy).sum((0, 1))
+    dkv = torch.add(gs, (rf * uf)[..., :, None] * dyf[..., None, :],
+                    out=rdy)
+    dk = torch.einsum("bshde,bshe->bshd", dkv, vf)
+    dv = torch.einsum("bshde,bshd->bshe", dkv, kf)
+    dw = -ew * lam[..., 0] * (gs * prev).sum(-1)
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype), None if state is None else g.to(state.dtype))
 
 
 def wkv6_decode_step(r, k, v, w, u, state):

@@ -1,2 +1,4 @@
 """Command-line entry points of the port
-(``python -m repro_torch.launch.serve``)."""
+(``python -m repro_torch.launch.serve``, ``python -m
+repro_torch.launch.train``) and the raw step functions
+(``launch.steps``)."""

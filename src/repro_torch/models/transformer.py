@@ -2,7 +2,7 @@
 (rwkv6) families; port of ``repro.models.transformer``.
 
 * ``init_params(cfg, seed, device)``
-* ``forward_train(cfg, params, batch)``          -> (logits, aux)
+* ``forward_train(cfg, params, batch, remat)``   -> (logits, aux)
 * ``prefill(cfg, params, batch, cache_len)``     -> (logits, caches)
 * ``decode(cfg, params, batch, caches)``         -> (logits, caches)
 
@@ -13,9 +13,12 @@ a Python loop over it, and the caches are a list with one entry a layer
 reference's layout: ``params["layers"]`` holds a Mamba layer at each
 ``"mamba"`` position and ``None`` at each ``"attn"`` position, where the
 one ``params["shared_attn"]`` block runs, with a ``KVCache`` of its own at
-each position.  ``forward_train`` is the no-cache forward, without
-rematerialisation.  An MoE model's attention layers carry ``moe`` in
-place of ``mlp``.  The whisper encoder-decoder is ``whisper.py``.
+each position.  ``forward_train`` is the no-cache forward; with
+``remat`` each layer runs under ``torch.utils.checkpoint`` (its
+activations recomputed in the backward pass), the hybrid's layers too,
+which the reference's Python loop leaves to XLA.  An MoE model's
+attention layers carry ``moe`` in place of ``mlp``.  The whisper
+encoder-decoder is ``whisper.py``.
 
 ``batch`` keys: ``tokens`` i32[B,S] (or ``embeds`` f32[B,S,D]),
 ``positions`` i32[B,S] (or [B,S,3] for M-RoPE), optionally
@@ -27,6 +30,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .attention import (attention_decode, attention_prefill, attn_init,
@@ -192,27 +196,34 @@ def _zero_aux(x) -> Aux:
 
 
 def _run_stack(cfg: ModelConfig, params, x, positions, *, mode,
-               caches=None, cache_len=0, window=None, seq_positions=None):
+               caches=None, cache_len=0, window=None, seq_positions=None,
+               remat=False):
     """Run the layer stack, one layer after another (the hybrid's
-    attention positions through the shared block).  Returns (x, caches or
-    None, Aux): ``moe_aux`` summed over the layers, ``router_entropy``
-    averaged over a homogeneous stack and summed over a hybrid's, as the
-    reference's scan and loop give them."""
+    attention positions through the shared block), each layer under
+    ``checkpoint`` when ``remat``.  Returns (x, caches or None, Aux):
+    ``moe_aux`` summed over the layers, ``router_entropy`` averaged over
+    a homogeneous stack and summed over a hybrid's, as the reference's
+    scan and loop give them."""
+    def run(block, *args, **kw):
+        if not remat:
+            return block(*args, **kw)
+        # the layers draw no random numbers: no RNG state to keep
+        return checkpoint(block, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
     new_caches, auxs = [], []
     for i, kind in enumerate(cfg.layer_kinds()):
         c = caches[i] if caches is not None else None
         if kind == "mamba":
-            x, c = _mamba_block(cfg, params["layers"][i], x, mode=mode,
-                                cache=c)
+            x, c = run(_mamba_block, cfg, params["layers"][i], x, mode=mode,
+                       cache=c)
         elif kind == "rwkv":
-            x, c = _rwkv_block(cfg, params["layers"][i], x, cache=c)
+            x, c = run(_rwkv_block, cfg, params["layers"][i], x, cache=c)
         else:
             lp = params["shared_attn"] if cfg.arch_type == "hybrid" \
                 else params["layers"][i]
-            x, c, a = _attn_block(cfg, lp, x, positions, mode=mode,
-                                  cache=c, cache_len=cache_len,
-                                  window=window,
-                                  seq_positions=seq_positions)
+            x, c, a = run(_attn_block, cfg, lp, x, positions, mode=mode,
+                          cache=c, cache_len=cache_len, window=window,
+                          seq_positions=seq_positions)
             auxs.append(a)
         new_caches.append(c)
     aux = _zero_aux(x)
@@ -228,12 +239,13 @@ def _run_stack(cfg: ModelConfig, params, x, positions, *, mode,
 # public entry points
 # ---------------------------------------------------------------------------
 
-def forward_train(cfg: ModelConfig, params, batch):
+def forward_train(cfg: ModelConfig, params, batch, *, remat: bool = True):
     """The no-cache forward over the whole sequence: (logits f32
-    [B, S, V], Aux; zeros but for an MoE model)."""
+    [B, S, V], Aux; zeros but for an MoE model).  ``remat`` recomputes
+    each layer's activations in the backward pass."""
     x = _embed_inputs(cfg, params, batch)
     x, _, aux = _run_stack(cfg, params, x, batch.get("positions"),
-                           mode="train")
+                           mode="train", remat=remat)
     return _head(cfg, params, x), aux
 
 

@@ -3,7 +3,9 @@
 For ``repro.sim``, ``repro.cluster``, ``repro.core`` and
 ``repro.workloads`` (and, at the end, ``repro.models``, its ``moe``,
 ``whisper``, ``frontends`` and ``rope`` modules and
-``repro.launch.serve``): every public name of the reference exists in the
+``repro.launch.serve``, and the training modules ``repro.optim``,
+``repro.data``, ``repro.checkpoint``, ``repro.launch.train`` and
+``repro.launch.steps``): every public name of the reference exists in the
 port unless it belongs to a slice still to come (``PENDING``, each with
 its ROADMAP id, so that a slice that lands shrinks the list); a
 function keeps the reference's positional parameters, the port adding
@@ -149,12 +151,21 @@ def test_exports_the_slice_names():
 #: Public names of the reference's model and serving modules that the
 #: port does not have yet, with the ROADMAP item that ports them.
 MODEL_PENDING = {
-    "models": {"loss_fn": "A16"},
+    "models": {},
     "models.moe": {},
     "models.whisper": {},
     "models.frontends": {},
     "models.rope": {},
     "launch.serve": {},
+    "optim": {},
+    "data": {},
+    "checkpoint": {},
+    "launch.train": {},
+    # the jitted, sharded wrappers (and the private ``_shard``) are launch
+    # and sharding
+    "launch.steps": {"make_sharded_train_step": "A18",
+                     "make_sharded_prefill": "A18",
+                     "make_sharded_decode": "A18", "make_step_for": "A18"},
 }
 #: The reference's inits and stubs take a ``jax.random`` key; the port's
 #: take a seed (``init_params``) or a ``torch.Generator`` in its place.
