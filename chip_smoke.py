@@ -102,7 +102,18 @@ Phases, each printing its own lines:
    ``RZ_REPLAY_CHUNK``), every lane held to ``GOLDEN_SWEEP`` or
    ``GOLDEN_RZ`` (pinned by ``tests/test_torch_sweep.py``), B1 once a
    ``fused`` event of a group, with each sweep's and each group's
-   lane-events/s beside one ``simulate``'s events/s; then the numpy
+   lane-events/s beside one ``simulate``'s events/s; then sharded sweeps
+   (``sharded_sweeps``, ``devices=k``, counts zeroed again): a
+   rehearsal on this card with the device count and the shards' devices
+   patched so that ``k`` shards land on ``cuda:0`` (``chain_grid`` at
+   ``k = 4``, 5 lanes a shard and 2 pad lanes; the edge grid's 8
+   autoscaled lanes at ``k = 3``, 1 pad lane), every lane held to
+   ``GOLDEN_SWEEP`` and the tight chain lanes to ``GOLDEN_CHAIN``, B1
+   once a ``fused`` event of each shard and one capture a shard shape;
+   then, unpatched, ``devices=1`` and ``"all"`` equal to the unsharded
+   chain grid and ``devices=count+1`` refused before any launch; with two
+   cards or more the same grids across the real cards at once, their
+   lane-events/s beside the unsharded groups'; then the numpy
    oracle (``oracle_phase``): the vertical benchmark's stored Azure
    tables written as the public CSVs and read back by
    ``load_azure_trace`` must equal ``trace_from_tables`` of them drawn
@@ -1897,6 +1908,11 @@ GB = 1024.0
 EDGE_MEMS = (2, 3, 4, 6, 8, 10, 12, 16)
 EDGE_SPLITS = (0.9, 0.8, 0.7, 0.5)
 CHAIN_REGIMES = (("none", None), ("tight", 4.0), ("loose", 8.0))
+#: The sharded rehearsal's shard counts (``sharded_sweeps``): the chain
+#: grid's 18 lanes in 4 shards of 5 (2 pad lanes), the edge grid's 8
+#: autoscaled lanes in 3 shards of 3 (1 pad lane).
+SHARD_CHAIN = 4
+SHARD_ASC = 3
 GOLDEN_SWEEP = {
     "edge_grid": {
         "kiss_2g_0.9": ([2755, 6622, 1838],
@@ -2230,10 +2246,13 @@ def sweep_phase(dev, trace, path_runs) -> dict:
             rz_check(f"vertical_replay lane {name}", r, REPLAY_LANES[name])
         fused += nr
         counts = total.delta()                # ... and ends here
+        check(counts["b1_launches"] == fused,
+              f"sweeps launched B1 {counts['b1_launches']} times, want "
+              f"{fused}")
+        sharded = sharded_sweeps(dev, trace, ctr, grids,
+                                 lanes_of["chain_grid/fused"], groups)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    check(counts["b1_launches"] == fused,
-          f"sweeps launched B1 {counts['b1_launches']} times, want {fused}")
     single = path_runs["kiss4096/fused/chunked"]["events_per_s"]
     static = groups["edge_grid/fused"][0]
     factor = static["lane_events_per_s"] / single
@@ -2249,7 +2268,129 @@ def sweep_phase(dev, trace, path_runs) -> dict:
         lanes_of["chain_grid/fused"][ORACLE_CHAIN_LANE], ctr)
     return {"launches": counts["b1_launches"], "counts": counts,
             "runs": runs, "batching_factor": factor,
-            "single_events_per_s": single, "oracle_runs": kept}
+            "single_events_per_s": single, "oracle_runs": kept,
+            "sharded": sharded}
+
+
+@contextlib.contextmanager
+def shards_on(dev, k: int):
+    """``k`` devices for a sharded sweep, every shard on ``dev``: the
+    engine's device count and its shards' devices patched (one card
+    rehearses what ``k`` cards run)."""
+    from repro_torch.cluster import engine
+    card = torch.device(dev.type, dev.index or 0)
+    real = engine._device_count, engine._lane_devices
+    engine._device_count = lambda device=None: k
+    engine._lane_devices = lambda n, device: [card] * n
+    try:
+        yield
+    finally:
+        engine._device_count, engine._lane_devices = real
+
+
+def sharded_sweeps(dev, trace, ctr, grids, base, groups) -> dict:
+    """Sharded sweeps (``devices=k``) on the card, inside the sweep
+    phase's ``set_sync_debug_mode("error")``, every count zeroed before
+    and read after.  The rehearsal patches the device count and the
+    shards' devices so that ``k`` shards land on ``dev`` one after
+    another, each through its block runner: the chain grid in ``fused``
+    at ``SHARD_CHAIN`` shards and the edge grid's autoscaled lanes at
+    ``SHARD_ASC``; B1 must launch once a ``fused`` event of each shard,
+    and the shards of one width capture once.  Then, unpatched,
+    ``devices=1`` and ``"all"`` must equal the unsharded chain grid
+    (``base``, the sweep phase's results) and ``devices=count+1`` must
+    raise before any launch.  With two cards or more, both grids run
+    across the real cards at once.  Every lane is held to
+    ``GOLDEN_SWEEP`` (the tight chain lanes also to ``GOLDEN_CHAIN``)."""
+    from repro_torch.sim import sweep
+    n, nc = len(trace), len(ctr)
+    chain = grids["chain_grid"]
+    asc = {k: v for k, v in grids["edge_grid"].items()
+           if k.startswith("adaptive_")}
+    cards = torch.cuda.device_count()
+    runs, fused = {}, 0
+
+    def run(what, scns, tr, golden, k, spans, devices, captures=None):
+        nonlocal fused
+        res, runs[what] = timed_sweep(
+            what, spans * k, "fused", len(scns), len(tr),
+            lambda: sweep(tr, list(scns.values()), mode="fused",
+                          device=dev, devices=devices))
+        if captures is not None:
+            check(runs[what]["captures"] == captures,
+                  f"{what}: {runs[what]['captures']} captures, want "
+                  f"{captures} (one a shard shape)")
+        got = dict(zip(scns, res))
+        for name, r in got.items():
+            want = tuple(GOLDEN_SWEEP[golden][name])
+            check(sweep_golden(r) == want,
+                  f"{what} lane {name}: {sweep_golden(r)} != the JAX "
+                  f"reference {want}")
+            check(r.run_info["devices"] == k,
+                  f"{what} lane {name}: run_info devices "
+                  f"{r.run_info['devices']} != {k}")
+        if golden == "chain_grid":
+            for r in ("slack_aware", "size_aware"):
+                tel = tel_digests(got[f"{r}-tight"])
+                check(tel == GOLDEN_CHAIN[r], f"{what} {r}-tight: {tel} != "
+                      f"the JAX reference {GOLDEN_CHAIN[r]}")
+        fused += k * sum(spans)
+        return got
+
+    zero_counts()                       # the sharded path starts here
+    total = RunCounts()
+    with shards_on(dev, SHARD_CHAIN):
+        run(f"chain_grid/fused/k{SHARD_CHAIN}", chain, ctr, "chain_grid",
+            SHARD_CHAIN, [nc], SHARD_CHAIN, captures=1)
+    with shards_on(dev, SHARD_ASC):
+        run(f"edge_grid_adaptive/fused/k{SHARD_ASC}", asc, trace,
+            "edge_grid", SHARD_ASC, spans_of(n, ASC_EPOCH), SHARD_ASC,
+            captures=1)
+    for devices in (1, "all"):
+        got = run(f"chain_grid/fused/devices={devices}", chain, ctr,
+                  "chain_grid", cards if devices == "all" else 1, [nc],
+                  devices)
+        for name, r in got.items():
+            check(sweep_digests(r) == sweep_digests(base[name]),
+                  f"devices={devices} lane {name} differs from the "
+                  "unsharded sweep")
+    before = RunCounts()
+    try:
+        sweep(ctr, list(chain.values()), mode="fused", device=dev,
+              devices=cards + 1)
+        refused = False
+    except ValueError as e:
+        refused = "exceeds" in str(e)
+    moved = before.delta()
+    check(refused, f"devices={cards + 1} was not refused with 'exceeds'")
+    check(moved["b1_launches"] == 0 and moved["blocks"] == 0
+          and moved["captures"] == 0,
+          f"devices={cards + 1} ran before it was refused: {moved}")
+    if cards >= 2:
+        run("chain_grid/fused/cards", chain, ctr, "chain_grid", cards,
+            [nc], "all")
+        run("edge_grid_adaptive/fused/cards", asc, trace, "edge_grid",
+            cards, spans_of(n, ASC_EPOCH), "all")
+        for what, group in (("chain_grid/fused/cards",
+                             groups["chain_grid/fused"][0]),
+                            ("edge_grid_adaptive/fused/cards",
+                             groups["edge_grid/fused"][1])):
+            print(f"  {what}: {runs[what]['lane_events_per_s']:.1f} "
+                  f"lane-events/s across {cards} cards against the "
+                  f"unsharded group's {group['lane_events_per_s']:.1f}",
+                  flush=True)
+    else:
+        print(f"sharded sweeps: {cards} card: the run across real cards "
+              "was not made", flush=True)
+    counts = total.delta()                # ... and ends here
+    check(counts["b1_launches"] == fused,
+          f"sharded sweeps launched B1 {counts['b1_launches']} times, "
+          f"want {fused} (shards x fused events)")
+    print(f"sharded sweeps: every lane matches the JAX reference bitwise; "
+          f"B1 launched {counts['b1_launches']} times, once a fused event "
+          f"of each shard; {counts['captures']} captures", flush=True)
+    return {"launches": counts["b1_launches"], "counts": counts,
+            "runs": runs, "cards": cards}
 
 
 #: The lane counts of the busy phase's sweep flavour: the edge grid's
@@ -3760,7 +3901,8 @@ def main() -> int:
     main_row = kernels["rows"][0]            # [2, 1024]: Scenario.kiss
     b1_path = (path["launches"] + autoscale["launches"]
                + telemetry["launches"] + vertical["launches"]
-               + sweeps["launches"] + oracle["launches"])
+               + sweeps["launches"] + sweeps["sharded"]["launches"]
+               + oracle["launches"])
     entries = [dict(name="pool_step.evict_place", route="cuda",
                     source="src/repro_torch/kernels/csrc/pool_step.cu",
                     replaces="src/repro/kernels/pool_step.py:43",
@@ -3771,6 +3913,7 @@ def main() -> int:
                         telemetry_chains=telemetry["launches"],
                         vertical=vertical["launches"],
                         sweep=sweeps["launches"],
+                        sweep_sharded=sweeps["sharded"]["launches"],
                         oracle=oracle["launches"],
                         failures=failures["launches"]),
                     cuda_kernels=POOL_KERNELS,
@@ -3829,6 +3972,7 @@ def main() -> int:
         "sweep": {k: sweeps[k] for k in ("runs", "counts",
                                          "batching_factor",
                                          "single_events_per_s")},
+        "sweep_sharded": sweeps["sharded"],
         "oracle": {k: oracle[k] for k in (
             "runs", "counts", "ingest_s", "host_events", "host_s",
             "host_events_per_s", "analyze")},

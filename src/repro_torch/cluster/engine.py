@@ -94,6 +94,15 @@ lane differs in is data: policy codes, capacities, deadlines, resize
 codes and floors, failure masks ``[T, L, N]``, the autoscaler's
 parameters and membership.  A single run is the one-lane case.
 
+A sharded sweep (``devices=k``, the reference's ``shard_map`` over a
+lane mesh) cuts a group's lanes, padded with copies of lane 0 to a
+multiple of ``k``, into ``k`` equal shards after every per-lane input is
+built, runs shard ``j`` on ``cuda:j`` (every shard on the CPU for a CPU
+run), each with its own block runner, and concatenates the lanes, the
+pad lanes dropped.  Shards on distinct devices run at once, one host
+thread a device; lanes share nothing, so every lane is bitwise its
+unsharded self.
+
 The module ends with the numpy oracle's entry points (the reference's
 ``_simulate_cluster{,_failures,_autoscale}_ref``: ``cluster_outcomes_ref``
 on the host, priced by ``build_result``) and the reference's deprecated
@@ -101,6 +110,8 @@ on the host, priced by ``build_result``) and the reference's deprecated
 """
 from __future__ import annotations
 
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -144,36 +155,106 @@ def check_chunk_events(chunk_events) -> int | None:
     return int(chunk_events)
 
 
-def check_devices(devices) -> int | None:
+def _device_type(device=None) -> str:
+    """``"cuda"`` or ``"cpu"``: the run's device type; ``None`` is the
+    host's default run, CUDA where a card is present."""
+    if device is None:
+        return "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.device(device).type
+
+
+def _device_count(device=None) -> int:
+    """The devices a sweep may shard its lanes over: every visible CUDA
+    device for a CUDA run, one for a CPU run (torch has one CPU device,
+    as JAX has one without its host-platform flag)."""
+    if _device_type(device) == "cuda":
+        return torch.cuda.device_count()
+    return 1
+
+
+def _lane_devices(k: int, device: torch.device) -> list[torch.device]:
+    """Where each of ``k`` shards runs: shard ``j`` on ``cuda:j`` for a
+    CUDA run (the reference's mesh takes ``jax.devices()[:k]``), every
+    shard on the CPU for a CPU run."""
+    if device.type == "cuda":
+        return [torch.device("cuda", j) for j in range(k)]
+    return [torch.device("cpu")] * k
+
+
+def check_devices(devices, device=None) -> int | None:
     """Validate (and resolve) a sweep ``devices`` argument, as the
     reference does: ``None`` keeps one device, ``"all"`` means every
-    visible CUDA device (at least one), a positive int the first that
-    many.  An invalid value raises ``ValueError``; a valid count above 1
-    raises ``NotImplementedError``: sharding a sweep's lanes across
-    devices is not in the port yet (ROADMAP A13)."""
+    device of the run's type (:func:`_device_count` of ``device``), a
+    positive int the first that many.  An invalid value, or a count
+    above what is available, raises ``ValueError`` before any work."""
     if devices is None:
         return None
+    avail = _device_count(device)
     if isinstance(devices, str):
         if devices != "all":
             raise ValueError("devices must be a positive int, 'all' or "
                              f"None, got {devices!r}")
-        n = max(torch.cuda.device_count(), 1)
-    else:
-        try:
-            ok = (not isinstance(devices, bool) and int(devices) == devices
-                  and devices >= 1)
-        except (TypeError, ValueError):
-            ok = False
-        if not ok:
-            raise ValueError("devices must be a positive int, 'all' or "
-                             f"None, got {devices!r}")
-        n = int(devices)
-    if n > 1:
-        raise NotImplementedError(
-            f"devices={devices!r}: sharding a sweep's lanes across {n} "
-            "devices is not in the PyTorch port yet (ROADMAP A13); pass "
-            "devices=None or 1")
+        return avail
+    try:
+        ok = (not isinstance(devices, bool) and int(devices) == devices
+              and devices >= 1)
+    except (TypeError, ValueError):
+        ok = False
+    if not ok:
+        raise ValueError("devices must be a positive int, 'all' or None, "
+                         f"got {devices!r}")
+    n = int(devices)
+    if n > avail:
+        raise ValueError(
+            f"devices={n} exceeds the {avail} available "
+            f"{_device_type(device).upper()} device(s) of this run: pass a "
+            "smaller count or 'all'")
     return n
+
+
+def _on(device: torch.device):
+    """``device`` made current for CUDA calls (a no-op on the CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _shard_lanes(n_lanes: int, devices: int | None, device: torch.device,
+                 run) -> list:
+    """Run a group's ``n_lanes`` lanes through ``run(lane indices,
+    device)``, which returns one output a lane: all of them on
+    ``device`` when ``devices`` is ``None``, else as ``devices`` shards
+    (the reference's ``_shard_lanes``/``_pad_lanes``): the lanes, padded
+    to a multiple of ``devices`` with copies of lane 0, are cut into
+    shards of ``ceil(n_lanes / devices)``, shard ``j`` run on
+    ``_lane_devices(devices, device)[j]``.  Shards on distinct devices
+    run at once, one host thread a device; shards that share a device
+    run one after another in its thread (they may share a block
+    runner).  A shard that fails raises here, after the others end.
+    Returns the real lanes' outputs in order, the pad lanes dropped."""
+    if devices is None:
+        return run(range(n_lanes), device)
+    width = -(-n_lanes // devices)
+    idx = list(range(n_lanes)) + [0] * (devices * width - n_lanes)
+    shards = [idx[j * width:(j + 1) * width] for j in range(devices)]
+    by_device: dict = {}
+    for j, d in enumerate(_lane_devices(devices, device)):
+        by_device.setdefault(d, []).append(j)
+    out = [None] * devices
+
+    def work(d, js):
+        with _on(d):
+            for j in js:
+                out[j] = run(shards[j], d)
+    if len(by_device) == 1:
+        work(*next(iter(by_device.items())))
+    else:
+        with ThreadPoolExecutor(max_workers=len(by_device)) as pool:
+            futures = [pool.submit(work, d, js)
+                       for d, js in by_device.items()]
+            for f in futures:
+                f.result()
+    return [lane for shard in out for lane in shard][:n_lanes]
 
 
 class ClusterEvent(NamedTuple):
@@ -895,10 +976,13 @@ def _replay(configs, trace: Trace, device, mode: str, chunk: int | None,
 
 def _run_group(configs, trace: Trace, device, rng_seed: int, mode: str,
                chunk_events, failures, telemetry, chains, what: str,
-               block_events: int | None = None) -> list:
+               block_events: int | None = None,
+               devices: int | None = None) -> list:
     """One sweep group (or one run: a group of one lane) through
-    :func:`_replay` on ``device`` (``None`` is the CUDA device): each
-    lane's ``(ClusterResult, extras)``."""
+    :func:`_replay` on ``device`` (``None`` is the CUDA device), or with
+    ``devices`` (a count :func:`check_devices` resolved) in that many
+    shards of its lanes (:func:`_shard_lanes`): each lane's
+    ``(ClusterResult, extras)``."""
     check_step_mode(mode)
     chunk = check_chunk_events(chunk_events)
     configs = _stack_configs(configs, what)
@@ -916,8 +1000,13 @@ def _run_group(configs, trace: Trace, device, rng_seed: int, mode: str,
     else:
         clouds = [cloud_cold_draws(t_len, c.cloud_cold_prob, rng_seed)
                   for c in configs]
-    lanes = _replay(configs, trace, device, mode, chunk, failures,
-                    block_events, telemetry, plan, clouds, deadline)
+    def run(idx, dev):
+        return _replay([configs[i] for i in idx], trace, dev, mode, chunk,
+                       None if failures is None
+                       else [failures[i] for i in idx], block_events,
+                       telemetry, plan, [clouds[i] for i in idx],
+                       None if deadline is None else deadline[idx])
+    lanes = _shard_lanes(len(configs), devices, device, run)
     return [(build_result(c, trace, node, outcome, cc), extras)
             for c, cc, (node, outcome, extras) in zip(configs, clouds,
                                                       lanes)]
@@ -1184,9 +1273,11 @@ def _replay_autoscale(configs, autoscales, trace: Trace, device, mode: str,
 def _run_group_autoscale(configs, autoscales, trace: Trace, device,
                          rng_seed: int, mode: str, failures, telemetry,
                          chains, what: str,
-                         block_events: int | None = None) -> list:
+                         block_events: int | None = None,
+                         devices: int | None = None) -> list:
     """One autoscaled sweep group (or one run) through
-    :func:`_replay_autoscale`: each lane's ``(ClusterResult, fracs,
+    :func:`_replay_autoscale`, in ``devices`` shards of its lanes when
+    given (as :func:`_run_group`): each lane's ``(ClusterResult, fracs,
     extras)``."""
     check_step_mode(mode)
     configs = _stack_configs(configs, what)
@@ -1213,9 +1304,14 @@ def _run_group_autoscale(configs, autoscales, trace: Trace, device,
     else:
         clouds = [cloud_cold_draws(t_len, c.cloud_cold_prob, rng_seed)
                   for c in configs]
-    lanes = _replay_autoscale(configs, autoscales, trace, device, mode,
-                              failures, block_events, telemetry, plan,
-                              clouds, deadline)
+    def run(idx, dev):
+        return _replay_autoscale(
+            [configs[i] for i in idx], [autoscales[i] for i in idx], trace,
+            dev, mode, None if failures is None
+            else [failures[i] for i in idx], block_events, telemetry, plan,
+            [clouds[i] for i in idx],
+            None if deadline is None else deadline[idx])
+    lanes = _shard_lanes(len(configs), devices, device, run)
     return [(build_result(c, trace, node, outcome, cc), fracs, extras)
             for c, cc, (node, outcome, fracs, extras)
             in zip(configs, clouds, lanes)]
@@ -1279,9 +1375,10 @@ def _sweep_cluster(trace: Trace, configs, rng_seed: int = 0,
     ``telemetry``, ``chains`` (one compiled ``ChainPlan`` per config) or
     vertical scaling, one ``(result, extras)`` pair per config."""
     check_step_mode(mode)
-    check_devices(devices)
+    devices = check_devices(devices, device)
     outs = _run_group(configs, trace, device, rng_seed, mode, None, None,
-                      telemetry, chains, "sweep_cluster", block_events)
+                      telemetry, chains, "sweep_cluster", block_events,
+                      devices)
     return [(r, x) if x else r for r, x in outs]
 
 
@@ -1294,10 +1391,10 @@ def _sweep_cluster_failures(trace: Trace, configs, failures,
     masks ride as data (``[T, L, N]``); one ``(result, extras)`` pair per
     config."""
     check_step_mode(mode)
-    check_devices(devices)
+    devices = check_devices(devices, device)
     return _run_group(configs, trace, device, rng_seed, mode, None,
                       list(failures), telemetry, chains, "failure sweep",
-                      block_events)
+                      block_events, devices)
 
 
 def _sweep_cluster_chunked(trace: Trace, configs, rng_seed: int = 0,
@@ -1312,10 +1409,10 @@ def _sweep_cluster_chunked(trace: Trace, configs, rng_seed: int = 0,
     ``(result, extras)`` pairs, else plain results."""
     check_step_mode(mode)
     check_chunk_events(chunk_events)
-    check_devices(devices)
+    devices = check_devices(devices, device)
     outs = _run_group(configs, trace, device, rng_seed, mode, chunk_events,
                       failures, telemetry, chains, "chunked sweep",
-                      block_events)
+                      block_events, devices)
     return [(r, x) if x else r for r, x in outs]
 
 
@@ -1331,10 +1428,10 @@ def _sweep_cluster_autoscale(trace: Trace, configs, autoscales,
     any failure masks are per-lane data.  One ``(result, fracs,
     extras)`` triple per config."""
     check_step_mode(mode)
-    check_devices(devices)
+    devices = check_devices(devices, device)
     return _run_group_autoscale(configs, autoscales, trace, device,
                                 rng_seed, mode, failures, telemetry, chains,
-                                "autoscale sweep", block_events)
+                                "autoscale sweep", block_events, devices)
 
 
 # The numpy oracle's entry points (the reference's ``_simulate_cluster*_ref``):

@@ -65,10 +65,17 @@ value the captured step closes over (:func:`block_runner`).  Warm-up and
 capture happen when an entry is made, on its own tensors, before any
 run's state is loaded.  On CUDA a capture that fails raises: the eager
 loop is never a fallback.
+
+A sharded sweep runs runners of several devices from one host thread a
+device: a capture runs on its runner's device and side stream in
+``thread_local`` mode (another thread's CUDA calls do not break it), one
+capture at a time, and :data:`STATS` and B1's launch count are updated
+under a lock.
 """
 from __future__ import annotations
 
 import functools
+import threading
 import time
 
 import torch
@@ -101,14 +108,22 @@ MIN_CHAIN_CAP = 64
 #: events of the chunks' remainders, ``captures`` graphs captured and
 #: ``capture_s`` the host seconds spent warming up and capturing them.
 STATS = {"blocks": 0, "eager_events": 0, "captures": 0, "capture_s": 0.0}
+_STATS_LOCK = threading.Lock()
+#: One capture at a time in the process, whatever its device.
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _count(key: str, n) -> None:
+    with _STATS_LOCK:
+        STATS[key] += n
 
 
 def _b1():
-    """The fused step's kernel wrapper, whose launch count the runner
+    """The fused step's kernel module, whose launch count the runner
     keeps right across capture and replay (imported at call time: the
     kernels import the core, never the other way at import)."""
-    from ..kernels.pool_step import evict_place_cuda
-    return evict_place_cuda
+    from ..kernels import pool_step
+    return pool_step
 
 
 def chain_capacity(n_chains: int) -> int:
@@ -219,27 +234,31 @@ class BlockRunner:
                 self.outcome, count, self.cx, self.out)
 
     def _capture(self) -> None:
-        """Warm up on a side stream, then capture one block (on the
-        runner's own tensors: no run's state is loaded yet)."""
-        b1, t0 = _b1(), time.perf_counter()
-        before = b1.launches
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._advance(*self._buffers(min(WARMUP_EVENTS, self.block)))
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        warm = b1.launches
-        with torch.cuda.graph(graph):
-            self._advance(*self._buffers(self.block))
-        torch.cuda.synchronize(self.device)
-        # the wrapper counted its calls during capture; those kernels run
-        # at each replay, and the warm-up's ran on no run's state
-        self.launches_per_block = b1.launches - warm
-        b1.launches = before
+        """Warm up on a side stream, then capture one block on it (on
+        the runner's own tensors: no run's state is loaded yet), with
+        the runner's device current."""
+        t0 = time.perf_counter()
+        with _CAPTURE_LOCK, torch.cuda.device(self.device), \
+                _b1().tally_launches() as tally:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._advance(*self._buffers(min(WARMUP_EVENTS,
+                                                 self.block)))
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            warm = tally()
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                self._advance(*self._buffers(self.block))
+            torch.cuda.synchronize(self.device)
+            # the wrapper counted its calls during capture apart: those
+            # kernels run at each replay; the warm-up's ran on no run's
+            # state and are not counted
+            self.launches_per_block = tally() - warm
         self.graph = graph
-        STATS["captures"] += 1
-        STATS["capture_s"] += time.perf_counter() - t0
+        _count("captures", 1)
+        _count("capture_s", time.perf_counter() - t0)
 
     def load(self, pools, routing, unified, cloud, active=None,
              deadline=None, sink=None) -> None:
@@ -281,8 +300,8 @@ class BlockRunner:
             self._advance(*self._buffers(self.block))
         else:
             self.graph.replay()
-            _b1().launches += self.launches_per_block
-        STATS["blocks"] += 1
+            _b1().add_launches(self.launches_per_block)
+        _count("blocks", 1)
 
     def _fold(self, b0: int) -> None:
         """Copy the snapshot rows of the block's window-ending events
@@ -332,7 +351,7 @@ class BlockRunner:
                 EventOut(rest(inval), rest(miss),
                          None if self.sink is None
                          else self.sink.at_ends(base + full)))
-            STATS["eager_events"] += c - full
+            _count("eager_events", c - full)
 
 
 @functools.lru_cache(maxsize=CACHE_SIZE)

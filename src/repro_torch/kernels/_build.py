@@ -14,8 +14,9 @@ flags.  A kernel with no bitwise contract passes its own,
 attention kernels (B2, B3) and the scans (B4, B5), which are held to
 their plain versions within a tolerance, not bit for bit, and make no
 decision on the values they compute.  A library
-is built at first use in a process, and again whenever its source is
-newer; a failed build raises with the compiler's output.
+is built at first use in a process, and again whenever its source or a
+header beside it (``csrc/*.cuh``) is newer; a failed build raises with
+the compiler's output.
 :func:`build_parallel` starts one ``nvcc`` per source at once.  Nothing
 here runs at import time.
 """
@@ -62,7 +63,8 @@ def build(name: str, flags: tuple[str, ...] = NVCC_FLAGS
     if not src.exists():
         raise FileNotFoundError(f"no kernel source {src}")
     lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in [src, *CSRC.glob("*.cuh")])
+    if lib.exists() and lib.stat().st_mtime >= newest:
         return lib, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

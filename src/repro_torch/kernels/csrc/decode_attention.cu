@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -629,13 +631,12 @@ int launch_mma(const void* q, const void* k, const void* v, const int* sp,
                int H, int KV, float scale, int window, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D, MT>();
   auto split = decode_mma_kernel<D, MT>;
-  static bool smem_set = false;      // once: the call costs host time
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  static PerDeviceAttr smem_set;      // once a device: costs host time
+  const int attr_rc = smem_set.ensure(smem, [&] {
+    return cudaFuncSetAttribute(
         split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  });
+  if (attr_rc != 0) return attr_rc;
   split<<<dim3((S + CHUNK - 1) / CHUNK, KV, B), NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -653,15 +654,14 @@ int launch_fma(const void* q, const void* k, const void* v, const int* sp,
                       + 2 * CHUNK * (D * sizeof(float) + 16)
                       + CHUNK * sizeof(int);
   auto split = decode_fma_kernel<D>;
-  // raise the kernel's shared-memory limit only when a launch needs more
-  // than an earlier one did: the call costs host time on every launch
-  static size_t smem_set = 0;
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // raise the kernel's shared-memory limit on this device only when a
+  // launch needs more than an earlier one did: the call costs host time
+  static PerDeviceAttr smem_set;
+  const int attr_rc = smem_set.ensure(smem, [&] {
+    return cudaFuncSetAttribute(
         split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
-  }
+  });
+  if (attr_rc != 0) return attr_rc;
   split<<<dim3((S + CHUNK - 1) / CHUNK, KV, B), NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), sp, cur, pm, pl, pa, S, H, KV, scale,

@@ -72,6 +72,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -859,13 +861,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (rc != 0) return rc;
   constexpr int smem = wgmma_smem_bytes<tile_cols<D>()>();
   auto kern = flash_wgmma_kernel<D>;
-  static bool smem_set = false;      // once: the call costs host time
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  static PerDeviceAttr smem_set;      // once a device: costs host time
+  const int attr_rc = smem_set.ensure(smem, [&] {
+    return cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  });
+  if (attr_rc != 0) return attr_rc;
   const float log2e = 1.4426950408889634f;
   dim3 grid(H * B, (Sq + WQ - 1) / WQ);
   kern<<<grid, WG_THREADS, smem, stream>>>(
@@ -880,13 +881,12 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
                int window, int q_offset, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   auto kern = flash_fma_kernel<D>;
-  static bool smem_set = false;      // once: the call costs host time
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
+  static PerDeviceAttr smem_set;      // once a device: costs host time
+  const int attr_rc = smem_set.ensure(smem, [&] {
+    return cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  });
+  if (attr_rc != 0) return attr_rc;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),

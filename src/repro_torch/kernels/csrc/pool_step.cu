@@ -60,11 +60,16 @@
 // Launched with cudaLaunchKernelEx and the cluster-dimension attribute
 // (runtime API, no -lcuda).  C interface (no PyTorch headers), bound with
 // ctypes by repro_torch/kernels/_build.py.  Bool masks arrive as their
-// 1-byte storage.  Returns the launch's CUDA error (0 on success).
+// 1-byte storage.  The launch goes to `device` (the tensors'), whichever
+// device is current, and the kernel's attributes are set once on each
+// device (per_device.cuh).  Returns the launch's CUDA error (0 on
+// success).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "per_device.cuh"
 
 #include <algorithm>
 
@@ -307,26 +312,23 @@ evict_place_kernel(const float* __restrict__ pri,
   }
 }
 
-}  // namespace
-
-extern "C" int evict_place_launch(const float* pri, const float* seq,
-                                  const float* size, const uint8_t* idle,
-                                  const uint8_t* valid, const float* deficit,
-                                  uint8_t* evict, float* freed, int32_t* ins,
-                                  float* avail, uint8_t* empty, int P, int S,
-                                  void* stream) {
-  static bool smem_set = false;      // once: the call costs host time
-  if (!smem_set) {
+// The launch on the current device, its attributes set once there.
+int launch_on_current(const float* pri, const float* seq, const float* size,
+                      const uint8_t* idle, const uint8_t* valid,
+                      const float* deficit, uint8_t* evict, float* freed,
+                      int32_t* ins, float* avail, uint8_t* empty, int P,
+                      int S, cudaStream_t stream) {
+  static PerDeviceAttr attrs;
+  int rc = attrs.ensure(1, [] {
     const cudaError_t err = cudaFuncSetAttribute(
         evict_place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem_bytes(kMaxSlots)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const cudaError_t e2 = cudaFuncSetAttribute(   // 16 > the portable 8
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(                   // 16 > the portable 8
         evict_place_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
         1);
-    if (e2 != cudaSuccess) return static_cast<int>(e2);
-    smem_set = true;
-  }
+  });
+  if (rc != 0) return rc;
   const int C =
       std::min(kMaxCluster, (S + kSlotsPerBlock - 1) / kSlotsPerBlock);
   const int span = (S + C - 1) / C;
@@ -345,7 +347,7 @@ extern "C" int evict_place_launch(const float* pri, const float* seq,
   cfg.gridDim = dim3(C, P, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes(S);
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
@@ -353,4 +355,31 @@ extern "C" int evict_place_launch(const float* pri, const float* seq,
       freed, ins, avail, empty, S, span, vec);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int evict_place_launch(const float* pri, const float* seq,
+                                  const float* size, const uint8_t* idle,
+                                  const uint8_t* valid, const float* deficit,
+                                  uint8_t* evict, float* freed, int32_t* ins,
+                                  float* avail, uint8_t* empty, int P, int S,
+                                  int device, void* stream) {
+  // launch on the tensors' device, whichever is current, and put the
+  // current device back after
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (current != device) {
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int rc = launch_on_current(pri, seq, size, idle, valid, deficit,
+                                   evict, freed, ins, avail, empty, P, S,
+                                   static_cast<cudaStream_t>(stream));
+  if (current != device) {
+    err = cudaSetDevice(current);
+    if (rc == 0 && err != cudaSuccess) return static_cast<int>(err);
+  }
+  return rc;
 }

@@ -70,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int T = 64;             // steps a chunk
@@ -708,13 +710,12 @@ int launch_mma(const void* x, const float* dt, const float* a, const void* b,
                int S, int H, int P, cudaStream_t stream) {
   constexpr int smem = MmaLayout<N>::BYTES;
   auto kern = ssm_scan_mma_kernel<N>;
-  static bool smem_set = false;      // once: the call costs host time
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  static PerDeviceAttr smem_set;      // once a device: costs host time
+  const int attr_rc = smem_set.ensure(smem, [&] {
+    return cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  });
+  if (attr_rc != 0) return attr_rc;
   kern<<<dim3(P / PB, H, B), MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), dt, a,
       static_cast<const __nv_bfloat16*>(b),
@@ -729,13 +730,12 @@ int launch_fma(const void* x, const float* dt, const float* a, const void* b,
                int S, int H, int P, cudaStream_t stream) {
   constexpr int smem = FmaLayout<N>::FLOATS * 4;
   auto kern = ssm_scan_fma_kernel<N>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  static PerDeviceAttr smem_set;      // once a device: costs host time
+  const int attr_rc = smem_set.ensure(smem, [&] {
+    return cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  });
+  if (attr_rc != 0) return attr_rc;
   kern<<<dim3(P / PB, H, B), FMA_THREADS, smem, stream>>>(
       static_cast<const float*>(x), dt, a, static_cast<const float*>(b),
       static_cast<const float*>(c), h0, static_cast<float*>(y), hout, S, H,

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int D = 64;                 // head dim
@@ -331,13 +333,12 @@ int launch(const void* r, const void* k, const void* v, const void* w,
            int S, int H, cudaStream_t stream) {
   const size_t smem = smem_bytes<Tin>();
   auto kern = wkv6_kernel<Tin>;
-  static bool smem_set = false;      // once: the call costs host time
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
+  static PerDeviceAttr smem_set;      // once a device: costs host time
+  const int attr_rc = smem_set.ensure(smem, [&] {
+    return cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  });
+  if (attr_rc != 0) return attr_rc;
   kern<<<dim3(H, B), NT, smem, stream>>>(
       static_cast<const Tin*>(r), static_cast<const Tin*>(k),
       static_cast<const Tin*>(v), static_cast<const Tin*>(w), u, s0,

@@ -25,7 +25,9 @@ sort composite ``repro_torch.core.pool._evict_place_lax``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -88,20 +90,22 @@ def _library():
     lib = _build.load("pool_step")
     fn = lib.evict_place_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_int,
-                                                 ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def evict_place_cuda(pri, seq, size, idle, valid, deficit):
-    """Launch ``csrc/pool_step.cu`` on PyTorch's current stream.
+    """Launch ``csrc/pool_step.cu`` on the tensors' device, on PyTorch's
+    current stream of that device.
 
     Same contract and outputs as :func:`evict_place_plain`.  Raises on a
     tensor that is not on a CUDA device, of the wrong dtype or shape, or
-    not contiguous; beyond :data:`MAX_SLOTS` slots or :data:`MAX_POOLS`
-    rows; and when the build or the launch fails.  Counts its launches in
-    ``evict_place_cuda.launches``."""
+    not contiguous, or on another device than ``pri``; beyond
+    :data:`MAX_SLOTS` slots or :data:`MAX_POOLS` rows; and when the build
+    or the launch fails.  Counts its launches in
+    ``evict_place_cuda.launches`` (:func:`add_launches`)."""
     dev = pri.device
     if dev.type != "cuda":
         raise ValueError(f"evict_place_cuda needs CUDA tensors, got {dev}")
@@ -126,18 +130,48 @@ def evict_place_cuda(pri, seq, size, idle, valid, deficit):
     ins = torch.empty(P, dtype=torch.int32, device=dev)
     avail = torch.empty(P, dtype=torch.float32, device=dev)
     empty = torch.empty(P, dtype=torch.bool, device=dev)
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = launch(_ptr(pri), _ptr(seq), _ptr(size), _ptr(idle), _ptr(valid),
                 _ptr(deficit), _ptr(evict), _ptr(freed), _ptr(ins),
-                _ptr(avail), _ptr(empty), P, S, ctypes.c_void_p(stream))
+                _ptr(avail), _ptr(empty), P, S, index,
+                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"evict_place kernel launch failed: CUDA error "
-                           f"{rc} at [{P}, {S}]")
-    evict_place_cuda.launches += 1
+                           f"{rc} at [{P}, {S}] on cuda:{index}")
+    add_launches(1)
     return evict, freed, ins, avail, empty
 
 
 evict_place_cuda.launches = 0
+_LAUNCHES_LOCK = threading.Lock()
+_tally = threading.local()
+
+
+def add_launches(n: int) -> None:
+    """Add ``n`` launches to ``evict_place_cuda.launches``, under a lock
+    (a sharded sweep launches from one thread a device), or to this
+    thread's open :func:`tally_launches` instead."""
+    if getattr(_tally, "count", None) is not None:
+        _tally.count += n
+        return
+    with _LAUNCHES_LOCK:
+        evict_place_cuda.launches += n
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Count this thread's launches apart from
+    ``evict_place_cuda.launches`` (the block runner's warm-up and
+    capture, which no run asked for); yields a function that reads the
+    tally so far."""
+    outer = getattr(_tally, "count", None)
+    _tally.count = 0
+    try:
+        yield lambda: _tally.count
+    finally:
+        _tally.count = outer
 
 
 @register_step_backend("fused")

@@ -12,10 +12,12 @@ elementwise: a leaf is factored when it has two axes or more *stacked*
 moment shared by the layers), and the update clip's RMS runs over the
 whole stacked leaf.  So the port treats the per-layer leaves of each
 list that the reference stacks as one leaf.  The rule needs no config: a
-list with no ``None`` entry is a stack of layers (every list of the
-port's params but a hybrid's ``layers``, whose attention positions are
-``None``); its entries must then share one structure, shapes and dtypes,
-or the update raises.  The state's ``vr`` and ``vc`` are kept in the
+list with no ``None`` entry is a stack of layers, except a hybrid's
+``layers`` (the list beside ``shared_attn``), which the reference keeps
+as a list of per-layer dicts whether or not an attention position
+(``None``) falls in it, as ``checkpoint.convert.stacked_keys`` does; a
+stack's entries must share one structure, shapes and dtypes, or the
+update raises.  The state's ``vr`` and ``vc`` are kept in the
 reference's layout (one stacked tensor a stacked leaf, under the same
 ``"/"`` keys), so they equal the reference's leaf for leaf.  Factored
 moments are small, so stacked ones are built with ``torch.stack``; a
@@ -53,6 +55,12 @@ def _is_stack(x) -> bool:
         all(e is not None for e in x)
 
 
+def _stacks(parent: dict, key) -> bool:
+    """Whether ``parent[key]`` may be a stack: not a hybrid's
+    ``layers``, which sits beside its ``shared_attn``."""
+    return not (key == "layers" and "shared_attn" in parent)
+
+
 def _stack(layers, key):
     first = layers[0]
     if isinstance(first, dict):
@@ -70,13 +78,13 @@ def _stack(layers, key):
     return _Layers(layers)
 
 
-def _layout(tree, key=""):
+def _layout(tree, key="", stack=True):
     """``tree`` in the reference's layout: each stack of layers one
     subtree whose leaves are ``_Layers``."""
     if isinstance(tree, dict):
-        return {k: _layout(v, f"{key}/{k}" if key else k)
+        return {k: _layout(v, f"{key}/{k}" if key else k, _stacks(tree, k))
                 for k, v in tree.items()}
-    if _is_stack(tree):
+    if stack and _is_stack(tree):
         return _stack(tree, key)
     if isinstance(tree, list):
         return [_layout(v, f"{key}/{i}" if key else str(i))
@@ -84,13 +92,14 @@ def _layout(tree, key=""):
     return tree
 
 
-def _unlayout(lay, like):
+def _unlayout(lay, like, stack=True):
     """The port's layout of ``lay`` (shaped as ``like``)."""
     if like is None:
         return None
     if isinstance(like, dict):
-        return {k: _unlayout(lay[k], v) for k, v in like.items()}
-    if _is_stack(like):
+        return {k: _unlayout(lay[k], v, _stacks(like, k))
+                for k, v in like.items()}
+    if stack and _is_stack(like):
         return [_unlayout(tree_map(
             lambda t, i=i: t.layers[i] if isinstance(t, _Layers) else t,
             lay), v) for i, v in enumerate(like)]

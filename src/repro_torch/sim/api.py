@@ -14,9 +14,9 @@
   are validated and then ignored, as the reference ignores them.
 
 A scenario with ``failures``, ``autoscale``, ``telemetry``, ``chains``
-or ``resize`` and a run with ``chunk_events`` give bitwise the
-reference's results on either engine, one run or a sweep's lane.  Not
-ported yet: sweeps sharded across devices (``devices`` above 1, A13).
+or ``resize``, a run with ``chunk_events`` and a sweep sharded across
+devices (``devices``) give bitwise the reference's results on either
+engine, one run or a sweep's lane.
 """
 from __future__ import annotations
 
@@ -193,13 +193,18 @@ def sweep(trace: Trace, scenarios: Iterable[Scenario], *,
     sequence (lanes bucket by it).  ``chunk_events`` runs every group
     chunk by chunk (see :func:`simulate`), carrying all of its lanes'
     state at once; an autoscaled scenario refuses it (``ValueError``).
-    ``devices`` is validated as the reference's: ``None`` or 1 (or
-    ``"all"`` with one visible device) run here; a count above 1 raises
-    ``NotImplementedError`` (sharded sweeps, ROADMAP A13).
-    ``engine="ref"`` runs :func:`simulate` with the numpy oracle for
-    each scenario in input order, after the same validation (``mode``,
-    ``chunk_events``, ``devices`` and ``device`` are then ignored, as
-    the reference ignores them).  ``device`` is where the run happens:
+    ``devices`` shards each group's lanes as the reference's mesh does:
+    ``None`` runs every group on ``device``; ``k`` (or ``"all"``: every
+    device of the run's type) cuts each group's lanes, padded with
+    copies of its first lane to a multiple of ``k``, into ``k`` shards,
+    shard ``j`` on ``cuda:j`` (a CPU run has one device, so ``k`` is at
+    most 1 there), shards on distinct cards at once; a count above the
+    devices available raises ``ValueError`` before any work.  Each lane
+    is bitwise its unsharded self.  ``engine="ref"`` runs
+    :func:`simulate` with the numpy oracle for each scenario in input
+    order, after the same validation (``mode``, ``chunk_events``,
+    ``devices`` and ``device`` are then ignored, as the reference
+    ignores them).  ``device`` is where the run happens:
     ``None`` means ``"cuda"``, and without a card it raises (pass
     ``device="cpu"``)."""
     _check_engine(engine)
@@ -219,7 +224,8 @@ def sweep(trace: Trace, scenarios: Iterable[Scenario], *,
     chunk = None
     for s in scenarios:
         chunk = _check_chunkable(s, chunk_events)
-    dev_count = check_devices(devices)
+    dev_count = check_devices(devices,
+                              None if engine == "ref" else device)
     if engine == "ref":
         _check_host_device(device)
         return [simulate(s, trace, engine="ref", rng_seed=rng_seed)
@@ -248,11 +254,11 @@ def sweep(trace: Trace, scenarios: Iterable[Scenario], *,
         if epoch is None:
             outs = [(raw, None, extras) for raw, extras in _run_group(
                 cfgs, trace, dev, rng_seed, gmode, chunk, fails, telw, chs,
-                "sweep")]
+                "sweep", devices=dev_count)]
         else:
             outs = _run_group_autoscale(
                 cfgs, [s.autoscale for s in scns], trace, dev, rng_seed,
-                gmode, fails, telw, chs, "sweep")
+                gmode, fails, telw, chs, "sweep", devices=dev_count)
         for i, (raw, fracs, extras) in zip(idxs, outs):
             results[i] = _wrap(scenarios[i], trace, raw, extras, fracs,
                                telw, info, plans[i])

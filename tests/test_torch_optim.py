@@ -75,13 +75,16 @@ def ref_flat(ref, tree) -> dict:
 
 def stacked_flat(tree) -> dict:
     """The port's tree in the reference's layout (each list with no
-    ``None`` stacked on a leading axis), flat, as numpy."""
-    def lay(t):
+    ``None`` stacked on a leading axis, but a hybrid's ``layers``, the
+    list beside ``shared_attn``), flat, as numpy."""
+    def lay(t, stack=True):
         if hasattr(t, "_fields"):
             t = t._asdict()
         if isinstance(t, dict):
-            return {k: lay(v) for k, v in t.items()}
-        if isinstance(t, list) and t and all(e is not None for e in t):
+            return {k: lay(v, not (k == "layers" and "shared_attn" in t))
+                    for k, v in t.items()}
+        if stack and isinstance(t, list) and t and all(
+                e is not None for e in t):
             layers = [flatten(lay(e)) for e in t]
             return {k: np.stack([lp[k] for lp in layers]) for k in layers[0]}
         if isinstance(t, list):
@@ -180,6 +183,45 @@ def test_adafactor_factors_the_stacked_leaves(pairs):
     assert st.vr["layers"][0]["ln1"]["g"].shape == (cfg.d_model,)
     assert st.vr["layers"][1] is None
     assert isinstance(st, AdafactorState)
+
+
+#: C5: a hybrid's ``layers`` holds ``None`` only at its attention
+#: positions, one every ``attn_every`` layers; below that period it holds
+#: none, and the reference still keeps it a list of per-layer dicts.
+HYBRID_TOL = 2e-5
+
+
+@pytest.mark.parametrize("n_layers", [3, 8])
+def test_adafactor_hybrid_layers_never_stack(n_layers, ref):
+    """Reduced zamba2 at ``attn_every=6``: 3 layers (no attention
+    position, C5) and 8 (one, the control), one Adafactor update from the
+    same params and grads on both sides.  The port keeps as many ``vr``
+    and ``vc`` leaves as the reference and updates every param alike."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("zamba2-1.2b").reduced(),
+                              attn_every=6, n_layers=n_layers)
+    assert (None in init_params(cfg, device="meta")["layers"]) == (
+        n_layers > 6)
+    rp = ref["models"].init_params(cfg, ref["jax"].random.PRNGKey(5))
+    g = draw_grads(ref, rp, 7)
+    kw = dict(lr=1e-3)
+    ropt = ref["optim"].get_optimizer("adafactor", **kw)
+    topt = get_optimizer("adafactor", **kw)
+    rp2, rs = ropt.update(rp, g, ropt.init(rp))
+    tp = params_from_reference(
+        ref["jax"].tree_util.tree_map(np.asarray, rp), cfg, "cpu")
+    tp2, ts = topt.update(tp, params_from_reference(g, cfg, "cpu"),
+                          topt.init(tp))
+    for what, got, want in (("vr", ts.vr, rs.vr), ("vc", ts.vc, rs.vc)):
+        got, want = stacked_flat(got), ref_flat(ref, want)
+        assert len(got) == len(want), (what, len(got), len(want))
+        close_flat(got, want, what, MOMENT_TOL)
+    got, want = stacked_flat(tp2), ref_flat(ref, rp2)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        err = float(np.abs(got[k] - np.asarray(want[k], np.float32)).max(
+            initial=0.0))
+        assert err <= HYBRID_TOL, f"{k}: {err} > {HYBRID_TOL}"
 
 
 def test_adafactor_refuses_layers_that_cannot_stack():

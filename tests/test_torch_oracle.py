@@ -21,6 +21,7 @@ import torch
 
 import repro_torch.core.continuum as PC
 import repro_torch.sim as T
+from repro_torch.cluster import engine
 from repro_torch.cluster.presets import het16_cluster
 from repro_torch.core.types import Trace as PortTrace
 from repro_torch.workloads import ChainConfig, chained_trace
@@ -332,8 +333,9 @@ def test_ref_refusals_after_validation(head):
         T.sweep(pt, [scn, asc], engine="ref", chunk_events=10)
     with pytest.raises(ValueError, match="non-empty"):
         T.sweep(pt, [], engine="ref")
-    with pytest.raises(NotImplementedError, match="A13"):
-        T.sweep(pt, [scn], engine="ref", devices=2)
+    with pytest.raises(ValueError, match="exceeds"):
+        T.sweep(pt, [scn], engine="ref",
+                devices=engine._device_count() + 1)
     with pytest.raises(ValueError, match="engine must be one of"):
         T.simulate(scn, pt, engine="jax")
     with pytest.raises(ValueError, match="CUDA or CPU"):

@@ -11,8 +11,8 @@ and to ``simulate`` of its scenario (node, outcome, every ``summary()``
 key, the window arrays, ``node_up`` and ``invalidated``).  Also a sweep
 that mixes groups (results in input order), the engine's sweep entry
 points with the reference's return shapes, the run info and manifest,
-the refusals (``_stack_configs``, ``check_devices``, ``devices=2``, no
-device without CUDA), ``engine="ref"`` after the same validation, and
+the refusals (``_stack_configs``, ``check_devices``, a ``devices``
+count above the run's devices, no device without CUDA), ``engine="ref"`` after the same validation, and
 the JAX side of ``chip_smoke.GOLDEN_SWEEP`` on a sub-grid.  Autoscaled,
 chain and resize groups, the block runner with lanes and the lane
 spelling of the routing bodies are in
@@ -320,18 +320,18 @@ def test_sweep_refusals(qtrace):
         T.sweep(tr, [], engine="ref", device="cpu")
     with pytest.raises(ValueError, match="mode must be one of"):
         T.sweep(tr, [scn], engine="ref", mode="scatter")
-    with pytest.raises(NotImplementedError, match="A13"):
-        T.sweep(tr, [scn], engine="ref", devices=2)
+    with pytest.raises(ValueError, match="exceeds"):
+        T.sweep(tr, [scn], engine="ref", devices=engine._device_count() + 1)
     got = T.sweep(tr, [scn, scn], engine="ref", device="cpu")
     want = T.simulate(scn, tr, device="cpu")
     for p in got + [T.simulate(scn, tr, engine="ref")]:
         assert_bitwise(want, p, "ref")
         assert p.run_info["engine"] == "ref"
-    # A13: sharded sweeps
-    with pytest.raises(NotImplementedError, match="A13"):
+    # sharded sweeps: a CPU run has one device
+    with pytest.raises(ValueError, match="exceeds"):
         T.sweep(tr, [scn], devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        engine.check_devices(4)
+    with pytest.raises(ValueError, match="exceeds"):
+        engine.check_devices(engine._device_count() + 1)
 
 
 def test_sweep_without_a_device_needs_cuda(qtrace):
