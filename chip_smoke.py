@@ -180,7 +180,23 @@ Phases, each printing its own lines:
    layers of each kind x steps (x 2 with ``remat``), and prints its step
    seconds, tokens/s, the device's busy share of a profiled step and its
    peak memory;
-12. one line of seconds a phase and the total, one JSON line of kernel
+12. sharding (``sharding_phase``): ``launch.make_host_mesh()`` on this
+   card (``nccl``, a ``(1, 1)`` ``("data", "model")`` ``DeviceMesh``;
+   no fallback); every config's param specs in both modes on the
+   production meshes (``SPEC_MESHES``, as names and sizes) held to the
+   JAX reference's digests (``GOLDEN_SPECS``, pinned by
+   ``tests/test_torch_sharding.py``), with a control (one leaf's spec
+   replicated) that must miss; zamba2-1.2b at its full config, its
+   params put on the mesh by ``distribute_tensor`` under its
+   ``"serve"`` placements and its caches under ``cache_specs`` (each
+   ``to_local()`` bitwise the source; the copies and the extra peak
+   memory printed), a 32-token prefill and 3 decode steps at batch 2 on
+   the local tensors with ``partitioning`` off, on, on, off, bitwise
+   equal,
+   each run's B2-B4 launches (zeroed just before, read just after)
+   equal to the layers x calls; the constraints on a ``DTensor`` of the
+   mesh;
+13. one line of seconds a phase and the total, one JSON line of kernel
    measurements, one of path numbers, then ``{"ok": true, ...}``.
 
 Any mismatch or fault exits non-zero; no phase's failure is caught.
@@ -3804,6 +3820,318 @@ def training_phase(dev) -> dict:
                 launches=total)
 
 
+# ---------------------------------------------------------------------------
+# sharding (A18a): the rules against the reference, a one-card DeviceMesh
+# ---------------------------------------------------------------------------
+
+#: The production meshes, as names and sizes (all the rules read), by
+#: the names ``GOLDEN_SPECS`` files them under.
+SPEC_MESHES = {"16x16": {"data": 16, "model": 16},
+               "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+SPEC_MODES = ("train", "serve")
+#: Every config's param specs at the production shapes, in both modes
+#: on both meshes, as the JAX reference computes them (laid out per
+#: layer as the port's params are): ``spec_digest`` of each.  Pinned by
+#: ``tests/test_torch_sharding.py``.
+GOLDEN_SPECS = {
+    "granite-34b": {
+        "train/16x16": "9ff36b33df550b26",
+        "serve/16x16": "49e09293da94cf33",
+        "train/2x16x16": "fab4fd08838f7dee",
+        "serve/2x16x16": "49e09293da94cf33"},
+    "kimi-k2-1t-a32b": {
+        "train/16x16": "38554d7bae41e4f5",
+        "serve/16x16": "5832e0b0ebd9a807",
+        "train/2x16x16": "00889f267667a804",
+        "serve/2x16x16": "5832e0b0ebd9a807"},
+    "whisper-medium": {
+        "train/16x16": "d0d0bf3acab841bb",
+        "serve/16x16": "fde5f982fb8a62db",
+        "train/2x16x16": "7450884bc34cfe8f",
+        "serve/2x16x16": "fde5f982fb8a62db"},
+    "qwen2-vl-7b": {
+        "train/16x16": "37d8535f8e76d0ee",
+        "serve/16x16": "711bc28203406267",
+        "train/2x16x16": "3c483e00d2450552",
+        "serve/2x16x16": "711bc28203406267"},
+    "qwen2.5-32b": {
+        "train/16x16": "f328b408b42dc281",
+        "serve/16x16": "365a515973c49c61",
+        "train/2x16x16": "9d38936a3bb70e2d",
+        "serve/2x16x16": "365a515973c49c61"},
+    "glm4-9b": {
+        "train/16x16": "4a7c071c562dfed6",
+        "serve/16x16": "8da63b98241818f7",
+        "train/2x16x16": "ee72b9ae66c6f82a",
+        "serve/2x16x16": "8da63b98241818f7"},
+    "granite-moe-1b-a400m": {
+        "train/16x16": "95d4bc252da613e4",
+        "serve/16x16": "c7de7dc88498deb0",
+        "train/2x16x16": "1261220db718e6ad",
+        "serve/2x16x16": "c7de7dc88498deb0"},
+    "starcoder2-3b": {
+        "train/16x16": "e81a66a724c2af63",
+        "serve/16x16": "daff9352cdc929d3",
+        "train/2x16x16": "aa79283165753733",
+        "serve/2x16x16": "daff9352cdc929d3"},
+    "zamba2-1.2b": {
+        "train/16x16": "ad7e10ddc8907858",
+        "serve/16x16": "a102fd488c40befd",
+        "train/2x16x16": "e6606248be387cae",
+        "serve/2x16x16": "a102fd488c40befd"},
+    "rwkv6-7b": {
+        "train/16x16": "480cf70aa444f0a0",
+        "serve/16x16": "4fad286ce98b0885",
+        "train/2x16x16": "8003920cb36dd173",
+        "serve/2x16x16": "4fad286ce98b0885"},
+}
+#: The model served through the one-card mesh: its full config (bf16,
+#: 38 layers, d = 2,048), a prefill of ``SHARD_PROMPT`` tokens and
+#: ``SHARD_DECODES`` decode steps at batch ``SHARD_BATCH``.
+SHARD_ARCH = "zamba2-1.2b"
+SHARD_BATCH = 2
+SHARD_PROMPT = 32
+SHARD_DECODES = 3
+SHARD_CACHE_LEN = 64
+
+
+class MeshShape:
+    """A mesh's axis names and sizes, with no device behind them: what
+    the sharding rules read, at any size."""
+
+    def __init__(self, shape: dict):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+
+
+def spec_digest(table: dict) -> str:
+    """blake2s (8 bytes) of ``{key: spec entries}``, sorted by key, each
+    spec's entries as JSON (a tuple of axes a list)."""
+    rows = sorted((k, list(v)) for k, v in table.items())
+    return hashlib.blake2s(json.dumps(rows).encode(),
+                           digest_size=8).hexdigest()
+
+
+def spec_tables(cfg) -> dict:
+    """``{"<mode>/<mesh>": {key: spec entries}}``: the port's param
+    specs of ``cfg`` at the production shapes."""
+    from repro_torch._tree import flatten
+    from repro_torch.launch.specs import params_shapes_for
+    from repro_torch.models.sharding import param_specs
+    shapes = params_shapes_for(cfg)
+    return {f"{mode}/{name}": {
+        k: tuple(v) for k, v in flatten(param_specs(
+            cfg, shapes, MeshShape(mesh), mode)).items()}
+        for name, mesh in SPEC_MESHES.items() for mode in SPEC_MODES}
+
+
+def golden_misses(arch: str, tables: dict) -> list:
+    """The ``"<mode>/<mesh>"`` tables whose digest is not the golden."""
+    return sorted(k for k, t in tables.items()
+                  if spec_digest(t) != GOLDEN_SPECS[arch].get(k))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def place(tree, specs, mesh) -> tuple:
+    """Each leaf of ``tree`` put on ``mesh`` by ``distribute_tensor``
+    under its spec's placements: (the tree of the local tensors, the
+    keys whose local tensor is not the source's storage).  Each local
+    tensor must be the source leaf, bitwise."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch._tree import flatten, map_with_keys
+    from repro_torch.models.sharding import placements
+    flat, copies = flatten(specs), []
+
+    def one(key, leaf):
+        want = placements(flat[key], mesh)
+        dt = distribute_tensor(leaf, mesh, want)
+        check(tuple(dt.placements) == want,
+              f"{key}: placements {dt.placements} != {want}")
+        local = dt.to_local()
+        check(same_bits(local, leaf), f"{key}: to_local() is not the leaf")
+        if local.untyped_storage().data_ptr() != \
+                leaf.untyped_storage().data_ptr():
+            copies.append(key)
+        return local
+    return map_with_keys(tree, one), copies
+
+
+def sharding_phase(dev) -> dict:
+    """The sharding rules and a one-card ``DeviceMesh`` (A18a):
+    ``make_host_mesh()`` on this card (``nccl``, ``(1, 1)``); every
+    config's param specs at the production shapes held to
+    ``GOLDEN_SPECS`` (with a control: one leaf's spec altered must miss);
+    then ``SHARD_ARCH`` at its full config, its params put on the mesh
+    under its ``"serve"`` placements and its caches under ``cache_specs``
+    (each local tensor bitwise the source), a prefill and
+    ``SHARD_DECODES`` decode steps on the local tensors with
+    ``partitioning`` off, on, on and off, which must agree bitwise
+    (logits and caches), with B2-B4's counts zeroed just before each run
+    and read just after, equal to the layers x calls; and the
+    constraints on a ``DTensor`` on the mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch._tree import flatten
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import partitioning
+    from repro_torch.models.sharding import (cache_specs, data_axes,
+                                             param_specs)
+    kernels = dict(flash_attention=flash_attention_cuda,
+                   decode_attention=decode_attention_cuda,
+                   ssm_scan=ssm_scan_cuda)
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    check(dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+          and tuple(mesh.shape) == (1, 1)
+          and mesh.mesh_dim_names == ("data", "model"),
+          f"host mesh {mesh} on {dist.get_backend()}")
+    print(f"sharding: make_host_mesh() {mesh} over "
+          f"{dist.get_backend()} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    sharded = {}
+    for arch in ARCH_IDS:
+        tables = spec_tables(get_config(arch))
+        miss = golden_misses(arch, tables)
+        check(not miss, f"{arch}: specs {miss} differ from GOLDEN_SPECS")
+        sharded[arch] = {k: sum(any(e is not None for e in s)
+                                for s in t.values())
+                         for k, t in tables.items()}
+        print(f"sharding {arch}: {len(tables['train/16x16'])} leaves, "
+              f"sharded {sharded[arch]} == GOLDEN_SPECS", flush=True)
+    tables = spec_tables(get_config(SHARD_ARCH))
+    table = tables["serve/16x16"]
+    key = next(k for k, s in table.items() if "model" in s)
+    table[key] = (None,) * len(table[key])
+    check(golden_misses(SHARD_ARCH, tables) == ["serve/16x16"],
+          "control: an altered spec passed the golden check")
+    print(f"sharding: {len(ARCH_IDS)} configs x {len(SPEC_MODES)} modes x "
+          f"{len(SPEC_MESHES)} meshes == GOLDEN_SPECS in "
+          f"{time.perf_counter() - t0:.2f} s; control ({key} replicated) "
+          "missed", flush=True)
+
+    cfg = get_config(SHARD_ARCH)
+    kinds = cfg.layer_kinds()
+    gc.collect()
+    params = init_params(cfg, seed=3, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    local, copies = place(params, param_specs(cfg, params, mesh, "serve"),
+                          mesh)
+    torch.cuda.synchronize()
+    extra_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    n_leaves = len(flatten(params))
+    print(f"sharding {SHARD_ARCH}: {n_leaves} params on the mesh, "
+          f"to_local() bitwise; {n_leaves - len(copies)} share the "
+          f"source's storage, {len(copies)} copied, extra peak "
+          f"{extra_gb:.3f} GB", flush=True)
+
+    prompt = torch.from_numpy(np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (SHARD_BATCH, SHARD_PROMPT)).astype(np.int32)
+                              ).to(dev)
+
+    def batch(tokens, pos0):
+        b, s = tokens.shape
+        pos = torch.arange(pos0, pos0 + s, dtype=torch.int32,
+                           device=dev)[None].expand(b, s)
+        return {"tokens": tokens, "positions": pos, "seq_positions": pos}
+
+    def serve(on: bool) -> dict:
+        if on:
+            partitioning.enable(data_axes(mesh), "model")
+        for k in kernels.values():      # the path starts here
+            k.launches = 0
+        t0 = time.perf_counter()
+        logits, caches = prefill(cfg, local, batch(prompt, 0),
+                                 cache_len=SHARD_CACHE_LEN)
+        caches, cache_copies = place(
+            caches, cache_specs(cfg, caches, mesh), mesh)
+        steps = [logits[:, -1]]
+        for i in range(SHARD_DECODES):
+            nxt = steps[-1].argmax(-1).to(torch.int32)[:, None]
+            logits, caches = decode_step(cfg, local,
+                                         batch(nxt, SHARD_PROMPT + i), caches)
+            steps.append(logits[:, -1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}  # ... ends
+        on_now = partitioning.is_enabled()
+        partitioning.disable()
+        check(on_now == on, "partitioning did not stay as set")
+        return dict(logits=torch.stack(steps, 1), caches=caches,
+                    launches=launches, wall_s=wall,
+                    cache_copies=len(cache_copies),
+                    cache_leaves=len(flatten(caches)))
+
+    # off, on, on, off: the first run also warms the path up
+    runs = [dict(serve(on), on=on) for on in (False, True, True, False)]
+    want = dict(flash_attention=kinds.count("attn"),
+                decode_attention=kinds.count("attn") * SHARD_DECODES,
+                ssm_scan=kinds.count("mamba"))
+    first = runs[0]
+    check(first["logits"].shape == (SHARD_BATCH, SHARD_DECODES + 1,
+                                    cfg.vocab_size)
+          and bool(torch.isfinite(first["logits"]).all()),
+          f"logits {tuple(first['logits'].shape)} not finite")
+    fa = flatten(first["caches"])
+    for i, r in enumerate(runs):
+        check(r["launches"] == want,
+              f"run {i}: launches {r['launches']} != {want}")
+        check(same_bits(r["logits"], first["logits"]),
+              f"run {i}: logits differ from run 0")
+        fb = flatten(r["caches"])
+        check(fa.keys() == fb.keys() and all(same_bits(fa[k], fb[k])
+                                             for k in fa),
+              f"run {i}: caches differ from run 0")
+    walls = {name: [r["wall_s"] for r in runs if r["on"] == on]
+             for name, on in (("on", True), ("off", False))}
+    print(f"sharding {SHARD_ARCH}: a {SHARD_PROMPT}-token prefill and "
+          f"{SHARD_DECODES} decode steps at batch {SHARD_BATCH} on the "
+          "local tensors, partitioning off, on, on, off: "
+          + ", ".join(f"{r['wall_s']:.3f}" for r in runs) + " s; logits "
+          f"and {len(fa)} cache leaves bitwise equal "
+          f"({first['cache_copies']} of {first['cache_leaves']} cache "
+          f"leaves copied by the placement); launches a run {want} == "
+          "layers x calls", flush=True)
+
+    # the constraints on a DTensor of the mesh: batch over data, vocab
+    # over model
+    partitioning.enable(data_axes(mesh), "model")
+    logits = first["logits"]
+    x = distribute_tensor(logits, mesh, (Replicate(), Replicate()))
+    for fn, want_pl in ((partitioning.hidden, (Shard(0), Replicate())),
+                        (partitioning.logits, (Shard(0), Shard(2)))):
+        y = fn(x)
+        check(tuple(y.placements) == want_pl
+              and same_bits(y.to_local(), logits),
+              f"{fn.__name__}: {y.placements} != {want_pl}")
+    partitioning.disable()
+    check(fn(x) is x, "a constraint moved a tensor while disabled")
+    print("sharding: hidden() and logits() redistribute a DTensor of the "
+          "mesh to (Shard(0), Replicate()) and (Shard(0), Shard(2)); "
+          "disabled, they return it as it is", flush=True)
+    del params, local, runs, first, logits, x, y
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(sharded_leaves=sharded, param_copies=len(copies),
+                param_leaves=n_leaves, extra_peak_gb=extra_gb,
+                wall_s=walls, launches={n: v * 4 for n, v in want.items()})
+
+
 def build_phase(_build) -> None:
     """Build every kernel, one ``nvcc`` each, all started together."""
     from repro_torch.kernels import (decode_attention, flash_attention,
@@ -3893,6 +4221,7 @@ def main() -> int:
     logits = phase("logits", logits_phase, dev)
     families = phase("families", families_phase, dev)
     training = phase("training", training_phase, dev)
+    sharding = phase("sharding", sharding_phase, dev)
     total_s = time.perf_counter() - t_start
     print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                  seconds.items())
@@ -3931,7 +4260,8 @@ def main() -> int:
                    attention["flash"], "path-starcoder2",
                    dict(serving=serving["launches"]["flash_attention"],
                         families=families["launches"]["flash_attention"],
-                        training=training["launches"]["flash_attention"]),
+                        training=training["launches"]["flash_attention"],
+                        sharding=sharding["launches"]["flash_attention"]),
                    FLASH_KERNELS[torch.bfloat16]),
                kernel_entry(
                    "decode_attention",
@@ -3939,14 +4269,16 @@ def main() -> int:
                    "src/repro/kernels/decode_attention.py:30",
                    attention["decode"], "path-starcoder2",
                    dict(serving=serving["launches"]["decode_attention"],
-                        families=families["launches"]["decode_attention"]),
+                        families=families["launches"]["decode_attention"],
+                        sharding=sharding["launches"]["decode_attention"]),
                    DECODE_KERNELS[torch.bfloat16]),
                kernel_entry(
                    "ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                    "src/repro/kernels/ssm_scan.py:29", scans["ssm_scan"],
                    "path-zamba2",
                    dict(serving=serving["launches"]["ssm_scan"],
-                        training=training["launches"]["ssm_scan"]),
+                        training=training["launches"]["ssm_scan"],
+                        sharding=sharding["launches"]["ssm_scan"]),
                    SCAN_KERNELS["ssm_scan"][torch.bfloat16]),
                # most of B5's launches are decode steps (S = 1)
                kernel_entry(
@@ -3983,6 +4315,7 @@ def main() -> int:
         "families": families["models"],
         "training": {k: training[k] for k in ("functions", "grads",
                                               "runs")},
+        "sharding": sharding,
         "phase_seconds": seconds, "seconds": total_s, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import partitioning
 from .config import ModelConfig
 from .layers import _dtype, _normal, act_fn, dense_init, mlp, mlp_init
 
@@ -108,7 +109,7 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     n_tok = b * s
     sg = _group_size(n_tok, e, group_size)
     g = n_tok // sg
-    xg = x.reshape(g, sg, d)
+    xg = partitioning.moe_tokens(x.reshape(g, sg, d))
     c = sg if s == 1 else _capacity(sg, cfg)
     cdt = x.dtype
 
@@ -123,14 +124,16 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     slot = torch.where(keep, gi * c + pos, g * c)
     xe = torch.zeros((e, g * c + 1, d), dtype=cdt, device=x.device)
     xe[topk_e, slot] = xg[:, :, None].expand(g, sg, k, d)
-    xe = xe[:, :g * c]
+    xe = partitioning.moe_dispatch(xe[:, :g * c])
     f = act_fn(cfg.act)
-    hidden = f(torch.bmm(xe, p["gate"].to(cdt))) \
-        * torch.bmm(xe, p["up"].to(cdt))
-    ye = torch.bmm(hidden, p["down"].to(cdt))               # [E,G*C,D]
+    hidden = partitioning.moe_dispatch(
+        f(torch.bmm(xe, p["gate"].to(cdt))) * torch.bmm(xe, p["up"].to(cdt)))
+    ye = partitioning.moe_dispatch(
+        torch.bmm(hidden, p["down"].to(cdt)))               # [E,G*C,D]
     # combine in f32: each token's kept experts, times their gates
     picked = ye[topk_e, torch.where(keep, slot, 0)].float()
-    y = torch.where(keep[..., None], picked * gate[..., None], 0.0).sum(2)
+    y = partitioning.moe_tokens(
+        torch.where(keep[..., None], picked * gate[..., None], 0.0).sum(2))
 
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], xg, cfg.act).float()

@@ -33,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from . import partitioning
 from .attention import (attention_decode, attention_prefill, attn_init,
                         init_cache)
 from .config import ModelConfig
@@ -133,12 +134,14 @@ def _attn_block(cfg, lp, x, positions, *, mode, cache=None,
                                          cache_len=cache_len,
                                          window_override=window,
                                          seq_positions=seq_positions)
-    x = x + h
+    x = partitioning.hidden(x + h)
     z = norm(lp["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
         out = moe_apply(cfg, lp["moe"], z)
-        return x + out.y, new_cache, Aux(out.aux_loss, out.router_entropy)
-    return x + mlp(lp["mlp"], z, cfg.act), new_cache, _zero_aux(x)
+        return partitioning.hidden(x + out.y), new_cache, \
+            Aux(out.aux_loss, out.router_entropy)
+    return partitioning.hidden(x + mlp(lp["mlp"], z, cfg.act)), new_cache, \
+        _zero_aux(x)
 
 
 def _mamba_block(cfg, lp, x, *, mode, cache=None):
@@ -148,7 +151,7 @@ def _mamba_block(cfg, lp, x, *, mode, cache=None):
     else:
         h, new_cache = ssm_prefill(cfg, lp["ssm"], z,
                                    make_cache=(mode == "prefill"))
-    return x + h, new_cache
+    return partitioning.hidden(x + h), new_cache
 
 
 def _rwkv_block(cfg, lp, x, *, cache: RWKVCache | None = None):
@@ -156,10 +159,10 @@ def _rwkv_block(cfg, lp, x, *, cache: RWKVCache | None = None):
     h, new_ltm, new_state = time_mix(cfg, lp["rwkv"],
                                      norm(lp["ln1"], x, cfg.norm_eps),
                                      ltm, st)
-    x = x + h
+    x = partitioning.hidden(x + h)
     h, new_lcm = channel_mix(cfg, lp["rwkv"],
                              norm(lp["ln2"], x, cfg.norm_eps), lcm)
-    x = x + h
+    x = partitioning.hidden(x + h)
     return x, RWKVCache(new_ltm, new_lcm, new_state)
 
 
@@ -179,15 +182,16 @@ def _embed_inputs(cfg: ModelConfig, params, batch) -> torch.Tensor:
         bi = torch.arange(x.shape[0], device=x.device)[:, None]
         x[bi, batch["patch_positions"].long()] = \
             batch["patch_embeds"].to(compute)
-    return x
+    return partitioning.hidden(x)
 
 
 def _head(cfg: ModelConfig, params, x) -> torch.Tensor:
     """Final norm and vocabulary projection; logits in f32."""
     x = norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return (x @ params["embed"]["emb"].to(x.dtype).T).float()
-    return dense(params["lm_head"], x).float()
+        return partitioning.logits(
+            (x @ params["embed"]["emb"].to(x.dtype).T).float())
+    return partitioning.logits(dense(params["lm_head"], x).float())
 
 
 def _zero_aux(x) -> Aux:
@@ -200,13 +204,18 @@ def _run_stack(cfg: ModelConfig, params, x, positions, *, mode,
                remat=False):
     """Run the layer stack, one layer after another (the hybrid's
     attention positions through the shared block), each layer under
-    ``checkpoint`` when ``remat``.  Returns (x, caches or None, Aux):
+    ``checkpoint`` when ``remat`` (with ``partitioning``'s selective
+    policy when one is set).  Returns (x, caches or None, Aux):
     ``moe_aux`` summed over the layers, ``router_entropy`` averaged over
     a homogeneous stack and summed over a hybrid's, as the reference's
     scan and loop give them."""
+    policy = partitioning.remat_policy() if remat else None
+
     def run(block, *args, **kw):
         if not remat:
             return block(*args, **kw)
+        if policy is not None:
+            kw["context_fn"] = policy
         # the layers draw no random numbers: no RNG state to keep
         return checkpoint(block, *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)

@@ -5,8 +5,11 @@ For ``repro.sim``, ``repro.cluster``, ``repro.core`` and
 ``whisper``, ``frontends`` and ``rope`` modules and
 ``repro.launch.serve``, and the training modules ``repro.optim``,
 ``repro.data``, ``repro.checkpoint``, ``repro.launch.train`` and
-``repro.launch.steps``): every public name of the reference exists in the
-port unless it belongs to a slice still to come (``PENDING``, each with
+``repro.launch.steps``, and the sharding modules
+``repro.models.sharding``, ``repro.models.partitioning``,
+``repro.launch.specs``, ``repro.launch.mesh`` and the ``repro.launch``
+package): every public name of the reference exists in the port unless
+it belongs to a slice still to come (``PENDING``, each with
 its ROADMAP id, so that a slice that lands shrinks the list); a
 function keeps the reference's positional parameters, the port adding
 at most a trailing ``device``; a class keeps the reference's public
@@ -15,6 +18,7 @@ policy registry.  The reference is reached through a fixture, so the
 file also collects where JAX is absent.
 """
 import importlib
+import importlib.util
 import inspect
 
 import pytest
@@ -28,6 +32,17 @@ PENDING = {
     "workloads": {},
 }
 PACKAGES = tuple(PENDING)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_imported():
+    """Import the reference's packages before the first test, where JAX
+    is present.  Some register policies when first imported, and
+    ``conftest``'s per-test rollback of the registries would drop those
+    registered inside a test for every later test of the process."""
+    if importlib.util.find_spec("jax") is not None:
+        for name in PACKAGES:
+            importlib.import_module(f"repro.{name}")
 
 
 def modules(name):
@@ -161,11 +176,16 @@ MODEL_PENDING = {
     "data": {},
     "checkpoint": {},
     "launch.train": {},
-    # the jitted, sharded wrappers (and the private ``_shard``) are launch
-    # and sharding
-    "launch.steps": {"make_sharded_train_step": "A18",
-                     "make_sharded_prefill": "A18",
-                     "make_sharded_decode": "A18", "make_step_for": "A18"},
+    "models.sharding": {},
+    "models.partitioning": {},
+    "launch.specs": {},
+    "launch.mesh": {},
+    "launch": {},
+    # the jitted, sharded wrappers (and the private ``_shard``) are the
+    # sharded steps
+    "launch.steps": {"make_sharded_train_step": "A18b",
+                     "make_sharded_prefill": "A18b",
+                     "make_sharded_decode": "A18b", "make_step_for": "A18b"},
 }
 #: The reference's inits and stubs take a ``jax.random`` key; the port's
 #: take a seed (``init_params``) or a ``torch.Generator`` in its place.
