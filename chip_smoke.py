@@ -171,12 +171,16 @@ Phases, each printing its own lines:
    Functions within ``GRAD_TOL`` of the f32 plain path (the bf16 plain
    path beside it), ``remat`` on equal to off, and a control: the kernels
    without their Functions leave leaves with no gradient; then three
-   runs through ``launch.train`` with every count zeroed just before and
-   read just after: (a) ``main`` at ``--arch 100m`` (f32, 40 steps, a
-   checkpoint that must restore bitwise into the params it was written
-   from; the loss must fall), (b) zamba2-1.2b at its full config and (c)
-   rwkv6-7b at full width and ``RWKV_TRAIN_LAYERS`` layers, both bf16
-   with ``remat``, 3 steps each; each run's launches must equal its
+   runs through ``launch.train`` (each on the card's ``nccl`` ``(1, 1)``
+   host mesh through ``make_sharded_train_step``, leaving no process
+   group) with every count zeroed just before and read just after: (a)
+   ``main`` at ``--arch 100m`` (f32, 40 steps, a checkpoint that must
+   restore bitwise into the params it was written from; the loss must
+   fall), then the 100m step raw against sharded on that mesh in one
+   process, its outputs placed and kept plain (ms a step of each,
+   params bitwise), (b) zamba2-1.2b at its full config and (c) rwkv6-7b
+   at full width and ``RWKV_TRAIN_LAYERS`` layers, both bf16 with
+   ``remat``, 3 steps each; each run's launches must equal its
    layers of each kind x steps (x 2 with ``remat``), and prints its step
    seconds, tokens/s, the device's busy share of a profiled step and its
    peak memory;
@@ -195,7 +199,16 @@ Phases, each printing its own lines:
    equal,
    each run's B2-B4 launches (zeroed just before, read just after)
    equal to the layers x calls; the constraints on a ``DTensor`` of the
-   mesh;
+   mesh; then the sharded steps (A18b) on the same mesh: (b)
+   ``make_step_for``'s prefill and decode of the same runs with
+   ``optimize`` off and on, logits and caches bitwise the local run's,
+   launches exact; (a) ``make_sharded_train_step`` of zamba2-1.2b at full
+   width and ``GRAD_LAYERS`` layers, ``STEP_TRAIN_STEPS`` AdamW steps,
+   params, optimizer state and metrics bitwise the raw ``train_step``'s,
+   launches layers x steps x 2, a control (another learning rate) that
+   must miss; and (d) with the group destroyed, the dry-run of
+   ``DRYRUN_PAIR`` on the 16 x 16 mesh (torch's fake process group,
+   ``meta`` tensors: no kernel), its record printed;
 13. one line of seconds a phase and the total, one JSON line of kernel
    measurements, one of path numbers, then ``{"ok": true, ...}``.
 
@@ -3649,7 +3662,8 @@ def model_grad_phase(dev) -> dict:
 
 
 class StepClock:
-    """Stands in for ``launch.train.train_step``: each step's wall time to
+    """Wraps the sharded step that ``launch.train`` builds
+    (``step_fn``): each step's wall time to
     a synchronize, its loss, and one step (``profile_step``) under the
     profiler (CUDA records only) for the device's busy share (summed
     device time of every kernel and copy over that step's wall) and the
@@ -3690,16 +3704,27 @@ class StepClock:
 def train_run(what, run, kernels, steps, tokens, profile_step) -> dict:
     """One training run through ``launch.train`` (``run()`` calls its
     ``main`` or ``run``), with every kernel count zeroed just before and
-    read just after, the steps timed by ``StepClock``, the params handed
-    to ``save_checkpoint`` kept, and the peak device memory."""
+    read just after, the steps of the sharded step that ``run`` builds
+    on its host mesh timed by ``StepClock``, the params handed to
+    ``save_checkpoint`` kept (full plain tensors), and the peak device
+    memory.  The mesh must be the card's ``nccl`` ``(1, 1)``
+    ``("data", "model")`` mesh, and no process group may be left."""
+    import torch.distributed as dist
+
     from repro_torch.launch import train as T
-    clock, saved = StepClock(T.train_step, profile_step), {}
-    real_save = T.save_checkpoint
+    clock, saved = StepClock(None, profile_step), {}
+    real_make, real_save = T.make_sharded_train_step, T.save_checkpoint
+
+    def make(cfg, mesh, *args, **kw):
+        saved["mesh"] = (dist.get_backend(), mesh.device_type,
+                         tuple(mesh.shape), mesh.mesh_dim_names)
+        clock.step_fn, example = real_make(cfg, mesh, *args, **kw)
+        return clock, example
 
     def keep(directory, step, tree):
         saved["tree"] = tree
         return real_save(directory, step, tree)
-    T.train_step, T.save_checkpoint = clock, keep
+    T.make_sharded_train_step, T.save_checkpoint = make, keep
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3711,7 +3736,11 @@ def train_run(what, run, kernels, steps, tokens, profile_step) -> dict:
         wall = time.perf_counter() - t0
         launches = {n: k.launches for n, k in kernels.items()}  # ... ends
     finally:
-        T.train_step, T.save_checkpoint = clock.step_fn, real_save
+        T.make_sharded_train_step, T.save_checkpoint = real_make, real_save
+    check(saved.get("mesh") == ("nccl", "cuda", (1, 1), ("data", "model")),
+          f"{what}: trained on {saved.get('mesh')}, not the card's host "
+          "mesh")
+    check(not dist.is_initialized(), f"{what}: a process group was left")
     check(len(clock.walls) == steps, f"{what}: {len(clock.walls)} steps")
     check(all(np.isfinite(clock.losses)), f"{what}: loss {clock.losses}")
     timed = [w for i, w in enumerate(clock.walls)
@@ -3721,7 +3750,9 @@ def train_run(what, run, kernels, steps, tokens, profile_step) -> dict:
                step_s=step_s, tokens_per_s=tokens / step_s,
                losses=clock.losses, busy=clock.busy, launches=launches,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"train {what}: {steps} steps, loss {clock.losses[0]:.4f} -> "
+    print(f"train {what}: {steps} steps on the host mesh "
+          f"{saved['mesh'][2]} over {saved['mesh'][0]}, "
+          f"loss {clock.losses[0]:.4f} -> "
           f"{clock.losses[-1]:.4f}; step {step_s:.3f} s "
           f"({out['tokens_per_s']:.0f} tokens/s; the first "
           f"{clock.walls[0]:.2f} s); device busy "
@@ -3733,13 +3764,94 @@ def train_run(what, run, kernels, steps, tokens, profile_step) -> dict:
     return out, saved.get("tree")
 
 
+#: The host cost of the sharded train step on the card's ``(1, 1)``
+#: host mesh: repro-100m at ``TRAIN_100M``'s batch, through the raw
+#: ``train_step`` and ``make_sharded_train_step``, its outputs placed as
+#: ``DTensor``s or kept plain (``place=False``, as ``launch.train``
+#: steps), in turn (raw, placed, plain, plain, placed, raw),
+#: ``STEP_COST_WARM`` steps then ``STEP_COST_TIMED`` timed ones each,
+#: from the same start.
+STEP_COST_WARM = 3
+STEP_COST_TIMED = 10
+
+
+def step_cost_check(dev) -> dict:
+    """The repro-100m step, raw against sharded on ``make_host_mesh()``
+    (``nccl``, ``(1, 1)``), in one process: ms a step of each of the six
+    runs, and each sharded run's params bitwise the raw run's after the
+    same steps (the mesh of one card moves no tensor)."""
+    import torch.distributed as dist
+
+    from repro_torch._tree import flatten
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.steps import make_sharded_train_step, train_step
+    from repro_torch.launch.train import train_100m_config
+    from repro_torch.models import init_params
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import get_optimizer
+    a = TRAIN_100M
+    cfg = train_100m_config()
+    opt = get_optimizer("adamw", lr=3e-4)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (a["batch"], a["seq"] + 1),
+                         generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.arange(a["seq"], dtype=torch.int32,
+                       device=dev)[None].expand(a["batch"], a["seq"])
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous(), "positions": pos}
+    mesh = make_host_mesh()
+    try:
+        sharded, _ = make_sharded_train_step(
+            cfg, mesh, InputShape("train", a["seq"], a["batch"], "train"),
+            opt, remat=False)
+
+        def raw(p, s, b):
+            return train_step(cfg, opt, p, s, b, remat=False)
+
+        def plain(p, s, b):
+            return sharded(p, s, b, place=False)
+
+        def ms_a_step(step):
+            p = init_params(cfg, 0, dev)
+            s = opt.init(p)
+            for _ in range(STEP_COST_WARM):
+                p, s, _m = step(p, s, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STEP_COST_TIMED):
+                p, s, _m = step(p, s, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / STEP_COST_TIMED * 1e3, p
+
+        out, finals = {}, {}
+        order = (("raw", raw), ("placed", sharded), ("plain", plain),
+                 ("plain", plain), ("placed", sharded), ("raw", raw))
+        for i, (name, step) in enumerate(order):
+            ms, finals[i] = ms_a_step(step)
+            out.setdefault(f"{name}_ms", []).append(ms)
+        check(all(same_tree(finals[i], finals[0]) for i in range(1, 6)),
+              "repro-100m: the sharded step's params differ from the raw "
+              "step's")
+        leaves = len(flatten(finals[0]))
+    finally:
+        dist.destroy_process_group()
+    print(f"train repro-100m raw vs sharded on the host mesh (1, 1), "
+          f"{a['batch']} x {a['seq']}, f32, {leaves} param leaves: "
+          + ", ".join(f"{n} " + " / ".join(f"{v:.2f}" for v in out[n + "_ms"])
+                      for n in ("raw", "placed", "plain"))
+          + f" ms a step (raw, placed, plain, plain, placed, raw; "
+          f"{STEP_COST_TIMED} steps each); params bitwise", flush=True)
+    return dict(out, param_leaves=leaves)
+
+
 def training_phase(dev) -> dict:
     """Training (A16) on the card: the Functions' checks
     (``function_phase``), the whole-model gradient check
     (``model_grad_phase``), then three runs through ``launch.train``:
     (a) ``main`` at ``--arch 100m`` (f32, B3 on ``flash_fma_kernel``)
     with a checkpoint, whose loss must fall and whose checkpoint must
-    restore bitwise into the params it was written from; (b) zamba2-1.2b
+    restore bitwise into the params it was written from, then its step
+    raw against sharded (``step_cost_check``); (b) zamba2-1.2b
     at its full config (bf16, ``remat``: B3 on ``flash_wgmma_kernel``, B4
     on ``ssm_scan_mma_kernel``); (c) rwkv6-7b at full width and
     ``RWKV_TRAIN_LAYERS`` layers (bf16, ``remat``: B5).  Each run's
@@ -3791,6 +3903,7 @@ def training_phase(dev) -> dict:
           flush=True)
     del live, back, fl, fb
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    runs["100m"]["raw_vs_sharded"] = step_cost_check(dev)
 
     for key, cfg, spec in (
             ("zamba2-1.2b", get_config("zamba2-1.2b"), TRAIN_ZAMBA),
@@ -3893,6 +4006,26 @@ SHARD_BATCH = 2
 SHARD_PROMPT = 32
 SHARD_DECODES = 3
 SHARD_CACHE_LEN = 64
+#: The sharded steps (A18b) on the same mesh: (a) the train step of
+#: zamba2-1.2b at full width and ``GRAD_LAYERS`` layers on batches of 2 x
+#: ``GRAD_SEQ`` tokens (the gradient check's), AdamW at ``STEP_LR``,
+#: ``STEP_TRAIN_STEPS`` steps from one seed, against the raw
+#: ``train_step``, and a control at ``STEP_CONTROL_LR`` that must miss;
+#: (b) ``make_step_for``'s prefill and decode of ``SHARD_ARCH`` as the
+#: local runs above; (d) the dry-run of ``DRYRUN_PAIR`` on the 16 x 16
+#: mesh.
+STEP_TRAIN_STEPS = 2
+STEP_LR = 3e-4
+STEP_CONTROL_LR = 1e-3
+DRYRUN_PAIR = ("starcoder2-3b", "decode_32k")
+#: Keys every dry-run record has (the reference's, less the compiler's
+#: ``temp_size_in_bytes`` and ``generated_code_size_in_bytes``).
+DRYRUN_KEYS = ("arch", "shape", "mesh", "chips", "notes", "n_layers",
+               "params", "active_params", "optimized", "flops",
+               "bytes_accessed", "collectives", "argument_size_in_bytes",
+               "output_size_in_bytes", "trace_s", "totals_exact",
+               "total_flops", "total_bytes_accessed",
+               "total_collective_bytes")
 
 
 class MeshShape:
@@ -3959,6 +4092,167 @@ def place(tree, specs, mesh) -> tuple:
             copies.append(key)
         return local
     return map_with_keys(tree, one), copies
+
+
+def same_tree(a, b) -> bool:
+    """Two trees with the same keys and every leaf bitwise equal (a
+    ``DTensor`` by its global value)."""
+    from repro_torch._tree import flatten
+    from repro_torch.launch.steps import _full
+    fa, fb = flatten(a), flatten(b)
+    return fa.keys() == fb.keys() and all(
+        same_bits(_full(fa[k]), _full(fb[k])) for k in fa)
+
+
+def sharded_serve_check(cfg, mesh, params, batch, prompt, first, kernels,
+                        want) -> dict:
+    """(b) ``make_step_for``'s prefill and decode of ``SHARD_ARCH`` at its
+    full config, as the local runs of the sharding phase (a
+    ``SHARD_PROMPT``-token prefill into ``SHARD_CACHE_LEN`` slots, then
+    ``SHARD_DECODES`` greedy decode steps), with ``optimize`` off and on:
+    logits and caches bitwise those of the local run ``first``, each
+    run's launches (zeroed just before, read just after) ``want``."""
+    from repro_torch._tree import flatten
+    from repro_torch.launch.steps import make_step_for
+    from repro_torch.models import partitioning
+    from repro_torch.models.config import InputShape
+    out = {}
+    for optimize in (False, True):
+        pre, _ = make_step_for(cfg, mesh, InputShape(
+            "shard_prefill", SHARD_CACHE_LEN, SHARD_BATCH, "prefill"),
+            optimize=optimize)
+        dec, _ = make_step_for(cfg, mesh, InputShape(
+            "shard_decode", SHARD_CACHE_LEN, SHARD_BATCH, "decode"),
+            optimize=optimize)
+        for k in kernels.values():      # the path starts here
+            k.launches = 0
+        t0 = time.perf_counter()
+        logits, caches = pre(params, batch(prompt, 0))
+        steps = [logits.to_local()[:, -1]]
+        for i in range(SHARD_DECODES):
+            nxt = steps[-1].argmax(-1).to(torch.int32)[:, None]
+            logits, caches = dec(params, batch(nxt, SHARD_PROMPT + i),
+                                 caches)
+            steps.append(logits.to_local()[:, -1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}  # ... ends
+        partitioning.disable()
+        tag = f"make_step_for(optimize={optimize})"
+        check(launches == want, f"{tag}: launches {launches} != {want}")
+        check(same_bits(torch.stack(steps, 1), first["logits"]),
+              f"{tag}: logits differ from the local run")
+        fa, fb = flatten(first["caches"]), flatten(caches)
+        check(fa.keys() == fb.keys() and all(
+            same_bits(fa[k], fb[k].to_local()) for k in fa),
+            f"{tag}: caches differ from the local run")
+        out[f"optimize_{optimize}"] = dict(wall_s=wall, launches=launches)
+        print(f"steps {SHARD_ARCH}: {tag} prefill and {SHARD_DECODES} "
+              f"decode steps on the mesh in {wall:.3f} s; logits and "
+              f"{len(fa)} cache leaves bitwise the local run's; launches "
+              f"{launches} == layers x calls", flush=True)
+    return out
+
+
+def sharded_train_check(dev, mesh, kernels) -> dict:
+    """(a) ``make_sharded_train_step`` of zamba2-1.2b at full width and
+    ``GRAD_LAYERS`` layers (bf16, ``remat``), AdamW, ``STEP_TRAIN_STEPS``
+    steps from one seed: params, optimizer state and metrics bitwise the
+    raw ``train_step``'s from the same start; B3/B4 launches (zeroed
+    just before, read just after) layers x steps x 2; a control (the
+    first step at another learning rate) must miss."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_sharded_train_step, train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import get_optimizer
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"),
+                              n_layers=GRAD_LAYERS)
+    kinds = cfg.layer_kinds()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    pos = torch.arange(GRAD_SEQ, dtype=torch.int32,
+                       device=dev)[None].expand(2, GRAD_SEQ)
+    batches = []
+    for _ in range(STEP_TRAIN_STEPS):
+        toks = torch.randint(0, cfg.vocab_size, (2, GRAD_SEQ + 1),
+                             generator=gen, device=dev, dtype=torch.int32)
+        batches.append({"tokens": toks[:, :-1].contiguous(),
+                        "labels": toks[:, 1:].contiguous(),
+                        "positions": pos})
+    opt = get_optimizer("adamw", lr=STEP_LR)
+    params = init_params(cfg, 5, dev)
+    state = opt.init(params)
+    p, s, raw = params, state, []
+    for b in batches:
+        p, s, m = train_step(cfg, opt, p, s, b, remat=True)
+        raw.append((p, s, m))
+    first_again = train_step(cfg, opt, params, state, batches[0], remat=True)
+    repeats = all(same_tree(x, y) for x, y in zip(first_again, raw[0]))
+    del first_again, p, s
+
+    shape = InputShape("steps_train", GRAD_SEQ, 2, "train")
+    fn, _ = make_sharded_train_step(cfg, mesh, shape, opt, remat=True)
+    for k in kernels.values():          # the path starts here
+        k.launches = 0
+    t0 = time.perf_counter()
+    p, s = params, state
+    for b in batches:
+        p, s, m = fn(p, s, b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}  # ... ends
+    want = dict(flash_attention=2 * STEP_TRAIN_STEPS * kinds.count("attn"),
+                decode_attention=0,
+                ssm_scan=2 * STEP_TRAIN_STEPS * kinds.count("mamba"))
+    check(launches == want, f"sharded train: launches {launches} != "
+          f"{want}")
+    want_p, want_s, want_m = raw[-1]
+    check(same_tree(p, want_p), "sharded train: params differ from the "
+          "raw train_step's")
+    check(same_tree(s, want_s), "sharded train: optimizer state differs "
+          "from the raw train_step's")
+    check(same_tree(m, want_m), f"sharded train: metrics {m} != {want_m}")
+    ctl, _ = make_sharded_train_step(
+        cfg, mesh, shape, get_optimizer("adamw", lr=STEP_CONTROL_LR),
+        remat=True)
+    control = ctl(params, state, batches[0])[0]
+    check(not same_tree(control, raw[0][0]),
+          "control: another learning rate gave the same params")
+    loss = [float(r[2]["loss"]) for r in raw]
+    print(f"steps zamba2-1.2b ({GRAD_LAYERS} layers, full width, bf16, "
+          f"remat, 2 x {GRAD_SEQ}): {STEP_TRAIN_STEPS} sharded AdamW steps "
+          f"on the mesh in {wall:.3f} s, loss {loss}; params, optimizer "
+          "state and metrics bitwise the raw train_step's (the raw step "
+          f"repeated: {'bitwise' if repeats else 'NOT bitwise'}); "
+          f"launches {launches} == layers x steps x 2; control (lr "
+          f"{STEP_CONTROL_LR} for {STEP_LR}) missed", flush=True)
+    del params, state, raw, p, s, control
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=STEP_TRAIN_STEPS, wall_s=wall, loss=loss,
+                launches=launches, raw_repeats_bitwise=repeats)
+
+
+def dryrun_check() -> dict:
+    """(d) The dry-run of ``DRYRUN_PAIR`` on the 16 x 16 mesh, on this
+    host (torch's fake process group, ``meta`` tensors, no kernel): its
+    record has ``DRYRUN_KEYS``, counts collectives, and leaves no
+    group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import run_one
+    check(not dist.is_initialized(), "dryrun: a process group is up")
+    t0 = time.perf_counter()
+    rec = run_one(*DRYRUN_PAIR, False)
+    secs = time.perf_counter() - t0
+    missing = [k for k in DRYRUN_KEYS if k not in rec]
+    check(not missing, f"dryrun: the record lacks {missing}")
+    check(rec["collectives"]["total_bytes"] > 0 and rec["flops"] > 0,
+          f"dryrun: {rec['collectives']}, flops {rec['flops']}")
+    check(not dist.is_initialized(), "dryrun: left a process group")
+    print(f"dryrun {DRYRUN_PAIR[0]} x {DRYRUN_PAIR[1]} x 16x16 on the host "
+          f"in {secs:.2f} s: " + json.dumps(rec), flush=True)
+    return dict(rec, seconds=secs)
 
 
 def sharding_phase(dev) -> dict:
@@ -4123,13 +4417,28 @@ def sharding_phase(dev) -> dict:
     print("sharding: hidden() and logits() redistribute a DTensor of the "
           "mesh to (Shard(0), Replicate()) and (Shard(0), Shard(2)); "
           "disabled, they return it as it is", flush=True)
+
+    # the sharded steps (A18b) on the same mesh
+    t0 = time.perf_counter()
+    serve_steps = sharded_serve_check(cfg, mesh, params, batch, prompt,
+                                      first, kernels, want)
     del params, local, runs, first, logits, x, y
-    dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    train_steps = sharded_train_check(dev, mesh, kernels)
+    dist.destroy_process_group()
+    dryrun = dryrun_check()
+    steps_s = time.perf_counter() - t0
+    print(f"steps: the sharded steps and the dry-run in {steps_s:.1f} s",
+          flush=True)
+    steps_launches = {n: 2 * want[n] + train_steps["launches"][n]
+                      for n in want}
     return dict(sharded_leaves=sharded, param_copies=len(copies),
                 param_leaves=n_leaves, extra_peak_gb=extra_gb,
-                wall_s=walls, launches={n: v * 4 for n, v in want.items()})
+                wall_s=walls, launches={n: v * 4 for n, v in want.items()},
+                steps=dict(serve=serve_steps, train=train_steps,
+                           dryrun=dryrun, seconds=steps_s),
+                steps_launches=steps_launches)
 
 
 def build_phase(_build) -> None:
@@ -4261,7 +4570,9 @@ def main() -> int:
                    dict(serving=serving["launches"]["flash_attention"],
                         families=families["launches"]["flash_attention"],
                         training=training["launches"]["flash_attention"],
-                        sharding=sharding["launches"]["flash_attention"]),
+                        sharding=sharding["launches"]["flash_attention"],
+                        sharded_steps=sharding["steps_launches"][
+                            "flash_attention"]),
                    FLASH_KERNELS[torch.bfloat16]),
                kernel_entry(
                    "decode_attention",
@@ -4270,7 +4581,9 @@ def main() -> int:
                    attention["decode"], "path-starcoder2",
                    dict(serving=serving["launches"]["decode_attention"],
                         families=families["launches"]["decode_attention"],
-                        sharding=sharding["launches"]["decode_attention"]),
+                        sharding=sharding["launches"]["decode_attention"],
+                        sharded_steps=sharding["steps_launches"][
+                            "decode_attention"]),
                    DECODE_KERNELS[torch.bfloat16]),
                kernel_entry(
                    "ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -4278,7 +4591,9 @@ def main() -> int:
                    "path-zamba2",
                    dict(serving=serving["launches"]["ssm_scan"],
                         training=training["launches"]["ssm_scan"],
-                        sharding=sharding["launches"]["ssm_scan"]),
+                        sharding=sharding["launches"]["ssm_scan"],
+                        sharded_steps=sharding["steps_launches"][
+                            "ssm_scan"]),
                    SCAN_KERNELS["ssm_scan"][torch.bfloat16]),
                # most of B5's launches are decode steps (S = 1)
                kernel_entry(

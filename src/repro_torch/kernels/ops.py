@@ -2,9 +2,11 @@
 
 Port of ``repro.kernels.ops``.  A CUDA tensor runs the hand-written
 kernel; a CPU tensor runs the kernel's plain version; any other device
-raises.  There is no switch that sends a CUDA tensor to the plain version
-(the reference's ``REPRO_FORCE_REF`` is not carried over): on the card
-the kernel runs or the call raises.
+raises, but for ``meta`` tensors inside :func:`tracing_shapes` (the
+dry-run's trace, ``launch.dryrun``: no data, nothing allocated), which
+run the plain versions too.  There is no switch that sends a CUDA
+tensor to the plain version (the reference's ``REPRO_FORCE_REF`` is not
+carried over): on the card the kernel runs or the call raises.
 
 Gradients.  A kernel writes its output through a raw pointer, so autograd
 cannot see through it.  When a gradient is needed (grad mode on and an
@@ -27,23 +29,42 @@ reference's does.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import (flash_attention_bwd, flash_attention_cuda,
                               flash_attention_plain)
-from .ssm_scan import (ssm_decode_step, ssm_scan_bwd, ssm_scan_cuda,
-                       ssm_scan_plain)
+from .ssm_scan import (ssm_decode_step, ssm_scan_bwd,
+                       ssm_scan_chunked_plain, ssm_scan_cuda, ssm_scan_plain)
 from .wkv6 import wkv6_bwd, wkv6_cuda, wkv6_decode_step, wkv6_plain
 
 __all__ = ["decode_attention", "flash_attention", "ssm_decode_step",
            "ssm_scan", "wkv6", "wkv6_decode_step"]
 
 
+#: Whether ``meta`` tensors run the plain versions (:func:`tracing_shapes`).
+_TRACING = {"on": False}
+
+
+@contextlib.contextmanager
+def tracing_shapes():
+    """Within this block a ``meta`` tensor runs the plain versions, which
+    only carry its shape: the dry-run's trace of a step."""
+    saved = _TRACING["on"]
+    _TRACING["on"] = True
+    try:
+        yield
+    finally:
+        _TRACING["on"] = saved
+
+
 def _route(what: str, t, kernel, plain):
     if t.device.type == "cuda":
         return kernel
-    if t.device.type == "cpu":
+    if t.device.type == "cpu" or (t.device.type == "meta"
+                                  and _TRACING["on"]):
         return plain
     raise ValueError(f"no {what} for tensors on {t.device}")
 
@@ -134,8 +155,12 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *,
 
 def ssm_scan(x, dt, a, b, c, *, h0=None):
     """x [B,S,H,P], dt [B,S,H], a [H], b/c [B,S,H,N] ->
-    (y [B,S,H,P], h_final [B,H,N,P] f32)."""
+    (y [B,S,H,P], h_final [B,H,N,P] f32).  A traced ``meta`` tensor
+    takes the chunked plain version (the kernel's arithmetic), a Python
+    step a chunk rather than a token."""
     fn = _route("ssm_scan", x, ssm_scan_cuda, ssm_scan_plain)
+    if x.device.type == "meta":
+        return ssm_scan_chunked_plain(x, dt, a, b, c, h0=h0)
     if fn is ssm_scan_cuda and needs_grad(x, dt, a, b, c, h0):
         return SSMScan.apply(x, dt, a, b, c, h0)
     return fn(x, dt, a, b, c, h0=h0)

@@ -1,11 +1,14 @@
 """Training driver; port of ``repro.launch.train``.
 
 Trains a model on the synthetic corpus of :mod:`repro_torch.data` with
-AdamW, on one device: the CUDA device unless ``--device cpu``.  The
-reference steps through a sharded ``jax.jit`` on a device mesh; the mesh
-and sharding are ROADMAP A18, not ported yet, so ``run`` calls the raw
-:func:`.steps.train_step` with no mesh.  ``--arch 100m`` (the default)
-is the ~100M-param example model::
+AdamW, as the reference does: on a host mesh (``make_host_mesh``: the
+process group's ranks, one device each, the CUDA device unless
+``--device cpu``), through the sharded step of
+:func:`.steps.make_sharded_train_step`, keeping the params and optimizer
+state between steps as the plain global tensors that each rank computes
+(``place=False``).  ``run`` sets up a process group of one rank where
+none is up, and destroys it on the way out; one that it found stays.
+``--arch 100m`` (the default) is the ~100M-param example model::
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch 100m --steps 5
@@ -24,9 +27,10 @@ from ..checkpoint import save_checkpoint
 from ..configs import get_config
 from ..data import DataConfig, batch_iterator
 from ..models import init_params
-from ..models.config import ModelConfig
+from ..models.config import InputShape, ModelConfig
 from ..optim import get_optimizer
-from .steps import train_step
+from .mesh import make_host_mesh
+from .steps import make_sharded_train_step
 
 
 def train_100m_config(vocab: int = 8192) -> ModelConfig:
@@ -43,30 +47,42 @@ def run(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
         seed: int = 0, remat: bool = False, device=None) -> list[dict]:
     """Train ``steps`` steps from weights drawn from ``seed``; returns the
     logged ``{"step", "loss", "elapsed_s"}`` records (every ``log_every``
-    steps and the last) and saves the final params to ``ckpt_dir``."""
+    steps and the last) and saves the final params (plain tensors, the
+    global values) to ``ckpt_dir``."""
+    import torch.distributed as dist
     dev = resolve_device(device)
-    optimizer = get_optimizer("adamw", lr=lr)
-    params = init_params(cfg, seed, dev)
-    opt_state = optimizer.init(params)
-    data = batch_iterator(
-        DataConfig(cfg.vocab_size, seq_len, global_batch, seed=seed),
-        steps, corpus_tokens=global_batch * (seq_len + 1) * 64)
+    own = not dist.is_initialized()
+    mesh = make_host_mesh(dev)
+    try:
+        shape = InputShape("train", seq_len, global_batch, "train")
+        optimizer = get_optimizer("adamw", lr=lr)
+        step_fn, _ = make_sharded_train_step(cfg, mesh, shape, optimizer,
+                                             remat=remat)
+        params = init_params(cfg, seed, dev)
+        opt_state = optimizer.init(params)
+        data = batch_iterator(
+            DataConfig(cfg.vocab_size, seq_len, global_batch, seed=seed),
+            steps, corpus_tokens=global_batch * (seq_len + 1) * 64)
 
-    history = []
-    t0 = time.perf_counter()
-    for i, np_batch in enumerate(data):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
-        params, opt_state, metrics = train_step(cfg, optimizer, params,
-                                                opt_state, batch,
-                                                remat=remat)
-        if i % log_every == 0 or i == steps - 1:
-            loss = float(metrics["loss"])
-            dt = time.perf_counter() - t0
-            rec = {"step": i, "loss": loss, "elapsed_s": round(dt, 1)}
-            history.append(rec)
-            print(f"step {i:5d}  loss {loss:.4f}  ({dt:.1f}s)", flush=True)
-    if ckpt_dir:
-        save_checkpoint(ckpt_dir, steps, params)
+        history = []
+        t0 = time.perf_counter()
+        for i, np_batch in enumerate(data):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in np_batch.items()}
+            params, opt_state, metrics = step_fn(params, opt_state, batch,
+                                                 place=False)
+            if i % log_every == 0 or i == steps - 1:
+                loss = float(metrics["loss"])
+                dt = time.perf_counter() - t0
+                rec = {"step": i, "loss": loss, "elapsed_s": round(dt, 1)}
+                history.append(rec)
+                print(f"step {i:5d}  loss {loss:.4f}  ({dt:.1f}s)",
+                      flush=True)
+        if ckpt_dir:
+            save_checkpoint(ckpt_dir, steps, params)
+    finally:
+        if own:
+            dist.destroy_process_group()
     return history
 
 

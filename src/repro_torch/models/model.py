@@ -22,27 +22,38 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     return transformer.init_params(cfg, seed, device)
 
 
-def forward_train(cfg: ModelConfig, params, batch, *, remat: bool = True):
+def forward_train(cfg: ModelConfig, params, batch, *, remat: bool = True,
+                  rows=None):
     """-> (logits [B,S,V] fp32, Aux).  Whisper ignores ``remat``, as the
-    reference does."""
+    reference does; ``rows``: see :func:`loss_fn`."""
     if cfg.is_encoder_decoder:
         logits = whisper.decode_train(cfg, params, batch["frame_embeds"],
                                       batch["tokens"])
         return logits, transformer._zero_aux(logits)
-    return transformer.forward_train(cfg, params, batch, remat=remat)
+    return transformer.forward_train(cfg, params, batch, remat=remat,
+                                     rows=rows)
 
 
-def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True):
+def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True,
+            rows=None):
     """Cross-entropy LM loss (+ MoE aux): (total, {"loss", "moe_aux",
     "router_entropy"}), all f32 scalars.  The loss is the mean over the
-    positions whose label is not negative."""
-    logits, aux = forward_train(cfg, params, batch, remat=remat)
+    positions whose label is not negative: their summed negative
+    log-likelihood over their count.
+
+    ``rows``, where ``batch`` is this rank's equal part of a batch split
+    across ranks (a sharded step, ``launch.steps``): their count
+    ``rows.ranks`` and ``rows.sum(t)``, which adds ``t`` over them in
+    place.  The count is then the whole batch's, and each value is this
+    rank's share: the ranks' values add up to the whole batch's."""
+    logits, aux = forward_train(cfg, params, batch, remat=remat, rows=rows)
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits, dim=-1)
     # a masked label reads row 0; its term is multiplied by 0
     nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum() if rows is None else rows.sum(mask.sum())
+    loss = (nll * mask).sum() / torch.clamp(count, min=1.0)
     total = loss + cfg.router_aux_coef * aux.moe_aux
     return total, {"loss": loss, "moe_aux": aux.moe_aux,
                    "router_entropy": aux.router_entropy}

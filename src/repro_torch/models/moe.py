@@ -11,6 +11,15 @@ buffer and gathered back from it, which keeps the same pairs and sums
 the same terms.  The reference's sharding constraints
 (``partitioning.moe_*``) are no-ops on one device and are not carried
 over.
+
+A sharded train step whose data axes split the batch
+(``launch.steps``) computes each rank's rows alone.  The load-balance
+loss is a product of means over the whole batch, so the step passes
+``rows`` (the split) down to :func:`moe_apply`: each rank then returns
+its *share* of the global loss and entropy (its sums over the global
+token count, the choice counts summed across the ranks first), and the
+shares of all ranks add up to the values of one call on the whole
+batch.
 """
 from __future__ import annotations
 
@@ -57,6 +66,21 @@ def moe_init(gen, cfg: ModelConfig, *, device="cpu") -> dict:
     return p
 
 
+def _aux_terms(probs, chosen, e: int, k: int, cdt, rows=None):
+    """(load-balance loss, router entropy) of ``probs`` and the one-hot
+    ``chosen`` [G, Sg, E]: a whole call's, or, with ``rows``, this
+    rank's share of the values of the batch that ``rows`` splits."""
+    ranks = 1 if rows is None else rows.ranks
+    n = probs.shape[0] * probs.shape[1] * ranks
+    counts = chosen.sum(dim=(0, 1))
+    if rows is not None:
+        counts = rows.sum(counts)
+    ce = (counts / n).to(cdt) / k
+    me = probs.sum(dim=(0, 1)) / n
+    ent = -torch.sum(probs * torch.log(probs + 1e-9)) / n
+    return e * torch.sum(me * ce.float()), ent
+
+
 def _capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
     c = int(tokens_per_group * cfg.experts_per_token
             * cfg.capacity_factor / cfg.n_experts)
@@ -98,12 +122,15 @@ def _route(cfg: ModelConfig, p: dict, xg: torch.Tensor, c: int):
 
 
 def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              group_size: int | None = None) -> MoEOutput:
+              group_size: int | None = None, *, rows=None) -> MoEOutput:
     """x: [B, S, D] -> MoEOutput with y: [B, S, D] in x's dtype.
 
     Tokens are reshaped to groups [G, S_g, D]; each group independently
     routes with capacity C = S_g * k / E * capacity_factor (at decode,
-    S == 1, C = S_g: nothing is dropped)."""
+    S == 1, C = S_g: nothing is dropped).  ``rows``, where ``x`` is this
+    rank's equal part of a batch split across ranks: their count
+    ``rows.ranks`` and ``rows.sum(t)``, which adds ``t`` over them in
+    place; the aux loss and entropy are then this rank's shares."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     n_tok = b * s
@@ -140,11 +167,7 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     # Switch load-balance loss: E * sum_e(f_e * p_e); the token share in
     # the compute dtype, as the reference's one-hot ``sel`` is
-    me = probs.mean(dim=(0, 1))
     chosen = torch.zeros((g, sg, e), dtype=torch.float32, device=x.device)
     chosen.scatter_(-1, topk_e, 1.0)
-    ce = chosen.mean(dim=(0, 1)).to(cdt) / k
-    aux = e * torch.sum(me * ce.float())
-    entropy = -torch.mean(torch.sum(probs * torch.log(probs + 1e-9),
-                                    dim=-1))
+    aux, entropy = _aux_terms(probs, chosen, e, k, cdt, rows)
     return MoEOutput(y.reshape(b, s, d).to(x.dtype), aux, entropy)

@@ -122,7 +122,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 def _attn_block(cfg, lp, x, positions, *, mode, cache=None,
-                cache_len=0, window=None, seq_positions=None):
+                cache_len=0, window=None, seq_positions=None, rows=None):
     z = norm(lp["ln1"], x, cfg.norm_eps)
     if mode == "decode":
         h, new_cache = attention_decode(cfg, lp["attn"], z, positions, cache,
@@ -137,7 +137,7 @@ def _attn_block(cfg, lp, x, positions, *, mode, cache=None,
     x = partitioning.hidden(x + h)
     z = norm(lp["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
-        out = moe_apply(cfg, lp["moe"], z)
+        out = moe_apply(cfg, lp["moe"], z, rows=rows)
         return partitioning.hidden(x + out.y), new_cache, \
             Aux(out.aux_loss, out.router_entropy)
     return partitioning.hidden(x + mlp(lp["mlp"], z, cfg.act)), new_cache, \
@@ -201,14 +201,15 @@ def _zero_aux(x) -> Aux:
 
 def _run_stack(cfg: ModelConfig, params, x, positions, *, mode,
                caches=None, cache_len=0, window=None, seq_positions=None,
-               remat=False):
+               remat=False, rows=None):
     """Run the layer stack, one layer after another (the hybrid's
     attention positions through the shared block), each layer under
     ``checkpoint`` when ``remat`` (with ``partitioning``'s selective
     policy when one is set).  Returns (x, caches or None, Aux):
     ``moe_aux`` summed over the layers, ``router_entropy`` averaged over
     a homogeneous stack and summed over a hybrid's, as the reference's
-    scan and loop give them."""
+    scan and loop give them; with ``rows`` (a batch split across ranks,
+    ``moe.moe_apply``) this rank's shares of them."""
     policy = partitioning.remat_policy() if remat else None
 
     def run(block, *args, **kw):
@@ -232,7 +233,7 @@ def _run_stack(cfg: ModelConfig, params, x, positions, *, mode,
                 else params["layers"][i]
             x, c, a = run(_attn_block, cfg, lp, x, positions, mode=mode,
                           cache=c, cache_len=cache_len, window=window,
-                          seq_positions=seq_positions)
+                          seq_positions=seq_positions, rows=rows)
             auxs.append(a)
         new_caches.append(c)
     aux = _zero_aux(x)
@@ -248,13 +249,15 @@ def _run_stack(cfg: ModelConfig, params, x, positions, *, mode,
 # public entry points
 # ---------------------------------------------------------------------------
 
-def forward_train(cfg: ModelConfig, params, batch, *, remat: bool = True):
+def forward_train(cfg: ModelConfig, params, batch, *, remat: bool = True,
+                  rows=None):
     """The no-cache forward over the whole sequence: (logits f32
     [B, S, V], Aux; zeros but for an MoE model).  ``remat`` recomputes
-    each layer's activations in the backward pass."""
+    each layer's activations in the backward pass; ``rows``: see
+    ``_run_stack``."""
     x = _embed_inputs(cfg, params, batch)
     x, _, aux = _run_stack(cfg, params, x, batch.get("positions"),
-                           mode="train", remat=remat)
+                           mode="train", remat=remat, rows=rows)
     return _head(cfg, params, x), aux
 
 

@@ -181,11 +181,7 @@ MODEL_PENDING = {
     "launch.specs": {},
     "launch.mesh": {},
     "launch": {},
-    # the jitted, sharded wrappers (and the private ``_shard``) are the
-    # sharded steps
-    "launch.steps": {"make_sharded_train_step": "A18b",
-                     "make_sharded_prefill": "A18b",
-                     "make_sharded_decode": "A18b", "make_step_for": "A18b"},
+    "launch.steps": {},
 }
 #: The reference's inits and stubs take a ``jax.random`` key; the port's
 #: take a seed (``init_params``) or a ``torch.Generator`` in its place.
@@ -235,3 +231,31 @@ def test_model_functions_keep_their_parameters(name):
         for w, g in zip(want, got):
             assert g == w or (w == "key" and g in KEY_NAMES), \
                 f"{name}.{fn}: {got} != {want}"
+
+
+#: ``launch.dryrun``'s parameters that the port names otherwise:
+#: ``collective_stats`` reads the port's record of the collectives a step
+#: issued (``(op, bytes)`` pairs), not the HLO text the reference parses.
+DRYRUN_RENAMED = {("collective_stats", "hlo_text"): "ops"}
+
+
+def test_dryrun_names_and_parameters():
+    """``launch.dryrun``'s public functions and their positional
+    parameters, the reference's read from its source with ``ast``:
+    importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512 host
+    devices, which every later JAX test of the process would see."""
+    import ast
+    import sys
+    from pathlib import Path
+
+    import repro_torch.launch.dryrun as port
+    src = Path(__file__).resolve().parents[1] / "src/repro/launch/dryrun.py"
+    tree = ast.parse(src.read_text())
+    ref = {n.name: [a.arg for a in n.args.posonlyargs + n.args.args]
+           for n in tree.body if isinstance(n, ast.FunctionDef)
+           and not n.name.startswith("_")}
+    assert sorted(ref) == ["collective_stats", "main", "run_one"]
+    for name, params in ref.items():
+        want = [DRYRUN_RENAMED.get((name, p), p) for p in params]
+        assert positional(getattr(port, name)) == want, name
+    assert "repro.launch.dryrun" not in sys.modules

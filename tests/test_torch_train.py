@@ -234,6 +234,7 @@ def test_train_main_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert rc == 0 and out.strip().endswith("(improved)"), out
     assert latest_step(str(tmp_path)) == 12
+    assert not torch.distributed.is_initialized()  # run's group is gone
 
 
 def test_train_100m_config():
