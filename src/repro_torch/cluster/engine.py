@@ -128,6 +128,7 @@ from ..core.pool import (Event, PoolState, _evict_place_lax, _first_true,
                          pool_step_batch, stack_pools)
 from ..core.registry import ROUTING, RouteCtx, observed_usage
 from ..core.types import DROP, HIT, MISS, PoolConfig, Trace
+from .. import obs
 from .metrics import ClusterResult, build_result
 
 #: The step formulations, in documentation order.
@@ -914,56 +915,65 @@ def _replay(configs, trace: Trace, device, mode: str, chunk: int | None,
     failing = failures is not None
     tel_on, ch_on = window is not None, plan is not None
     rz_on = configs[0].resize_policy is not None
-    ev_np = _host_events(trace, n, resize=rz_on)
-    with sync_point(device):
-        data = _run_data(trace, n, failures, plan, clouds, deadline, device)
-        sink = (_stack_tel(window, t_len, n, lanes, device) if tel_on
-                else None)
-        inputs = _run_inputs(configs, device)
-    if chunk is None and device.type == "cpu":
-        pools, routing, unified, cloud = inputs
-        step = _make_step(routing, unified, cloud, n, mode)
-        up, rec = (_upload(data.masks, 0, t_len, device) if failing
-                   else (None, None))
-        inval = (torch.zeros((lanes, n), dtype=torch.int32) if failing
-                 else None)
-        node, outcome, inval_ev, miss_ev = _outputs(t_len, lanes, failing,
-                                                    tel_on, ch_on, device)
-        chain = _chain_acc(data.deadline, cloud) if ch_on else None
-        pools, inval = _run_events(
-            step, pools, inval, ClusterEvent(*_upload(ev_np, 0, t_len,
-                                                       device)),
-            up, rec, node, outcome, t_len,
-            chain=None if chain is None else (
-                chain, ChainXs(*_upload(data.cx, 0, t_len, device))),
-            out=EventOut(inval_ev, miss_ev,
-                         None if sink is None else sink.at_ends(0)))
-    else:
-        chunk = chunk or max(t_len, 1)
+    host_loop = chunk is None and device.type == "cpu"
+    with obs.span("engine.load"):
+        ev_np = _host_events(trace, n, resize=rz_on)
         with sync_point(device):
-            runner = graphs.block_runner(
-                device, n, configs[0].max_slots, mode, failing, block_events,
-                tel=tel_on, chains=plan.n_chains if ch_on else 0,
-                resize=rz_on, lanes=lanes)
-            runner.load(*inputs, deadline=data.deadline, sink=sink)
-            host = _outputs(t_len, lanes, failing, tel_on, ch_on, "cpu")
-        for s in range(0, t_len, chunk):
-            e = min(s + chunk, t_len)
+            data = _run_data(trace, n, failures, plan, clouds, deadline,
+                             device)
+            sink = (_stack_tel(window, t_len, n, lanes, device) if tel_on
+                    else None)
+            inputs = _run_inputs(configs, device)
+        if host_loop:
+            pools, routing, unified, cloud = inputs
+            step = _make_step(routing, unified, cloud, n, mode)
+            up, rec = (_upload(data.masks, 0, t_len, device) if failing
+                       else (None, None))
+            inval = (torch.zeros((lanes, n), dtype=torch.int32) if failing
+                     else None)
+            node, outcome, inval_ev, miss_ev = _outputs(
+                t_len, lanes, failing, tel_on, ch_on, device)
+            chain = _chain_acc(data.deadline, cloud) if ch_on else None
+        else:
+            chunk = chunk or max(t_len, 1)
             with sync_point(device):
-                ev = ClusterEvent(*_upload(ev_np, s, e, device))
-                up, rec = (_upload(data.masks, s, e, device) if failing
-                           else (None, None))
-                cx = (ChainXs(*_upload(data.cx, s, e, device)) if ch_on
-                      else None)
-                outs = _outputs(e - s, lanes, failing, tel_on, ch_on, device)
-            runner.run_chunk(ev, up, rec, outs[0], outs[1], s, cx, *outs[2:])
-            with sync_point(device):
-                for h, d in zip(host, outs):
-                    if h is not None:
-                        h[s:e].copy_(d)
-        node, outcome, inval_ev, miss_ev = host
-        inval, chain, pools = runner.inval, runner.chain, runner.pools
-    with sync_point(device):
+                runner = graphs.block_runner(
+                    device, n, configs[0].max_slots, mode, failing,
+                    block_events, tel=tel_on,
+                    chains=plan.n_chains if ch_on else 0, resize=rz_on,
+                    lanes=lanes)
+                runner.load(*inputs, deadline=data.deadline, sink=sink)
+                host = _outputs(t_len, lanes, failing, tel_on, ch_on, "cpu")
+    with obs.span("engine.run"):
+        if host_loop:
+            pools, inval = _run_events(
+                step, pools, inval, ClusterEvent(*_upload(ev_np, 0, t_len,
+                                                           device)),
+                up, rec, node, outcome, t_len,
+                chain=None if chain is None else (
+                    chain, ChainXs(*_upload(data.cx, 0, t_len, device))),
+                out=EventOut(inval_ev, miss_ev,
+                             None if sink is None else sink.at_ends(0)))
+        else:
+            for s in range(0, t_len, chunk):
+                e = min(s + chunk, t_len)
+                with sync_point(device):
+                    ev = ClusterEvent(*_upload(ev_np, s, e, device))
+                    up, rec = (_upload(data.masks, s, e, device) if failing
+                               else (None, None))
+                    cx = (ChainXs(*_upload(data.cx, s, e, device)) if ch_on
+                          else None)
+                    outs = _outputs(e - s, lanes, failing, tel_on, ch_on,
+                                    device)
+                runner.run_chunk(ev, up, rec, outs[0], outs[1], s, cx,
+                                 *outs[2:])
+                with sync_point(device):
+                    for h, d in zip(host, outs):
+                        if h is not None:
+                            h[s:e].copy_(d)
+            node, outcome, inval_ev, miss_ev = host
+            inval, chain, pools = runner.inval, runner.chain, runner.pools
+    with obs.span("engine.readback"), sync_point(device):
         out = _lane_outputs(trace, node, outcome, data, window, plan, sink,
                             chain, inval_ev, miss_ev, pools)
         if failing:
@@ -983,23 +993,25 @@ def _run_group(configs, trace: Trace, device, rng_seed: int, mode: str,
     ``devices`` (a count :func:`check_devices` resolved) in that many
     shards of its lanes (:func:`_shard_lanes`): each lane's
     ``(ClusterResult, extras)``."""
-    check_step_mode(mode)
-    chunk = check_chunk_events(chunk_events)
-    configs = _stack_configs(configs, what)
-    if failures is not None:
-        failures = list(failures)
-        if len(failures) != len(configs):
-            raise ValueError(f"{what}: need one Failures (or None) per "
-                             "config")
-    device = resolve_device(device)
-    t_len = len(trace)
-    plan = deadline = None
-    if chains is not None:
-        plan, clouds, deadline = _sweep_chain_data(chains, configs, t_len,
-                                                   rng_seed)
-    else:
-        clouds = [cloud_cold_draws(t_len, c.cloud_cold_prob, rng_seed)
-                  for c in configs]
+    with obs.span("sweep.plan"):
+        check_step_mode(mode)
+        chunk = check_chunk_events(chunk_events)
+        configs = _stack_configs(configs, what)
+        if failures is not None:
+            failures = list(failures)
+            if len(failures) != len(configs):
+                raise ValueError(f"{what}: need one Failures (or None) per "
+                                 "config")
+        device = resolve_device(device)
+        t_len = len(trace)
+        plan = deadline = None
+        if chains is not None:
+            plan, clouds, deadline = _sweep_chain_data(chains, configs,
+                                                       t_len, rng_seed)
+        else:
+            clouds = [cloud_cold_draws(t_len, c.cloud_cold_prob, rng_seed)
+                      for c in configs]
+
     def run(idx, dev):
         return _replay([configs[i] for i in idx], trace, dev, mode, chunk,
                        None if failures is None
@@ -1007,9 +1019,10 @@ def _run_group(configs, trace: Trace, device, rng_seed: int, mode: str,
                        telemetry, plan, [clouds[i] for i in idx],
                        None if deadline is None else deadline[idx])
     lanes = _shard_lanes(len(configs), devices, device, run)
-    return [(build_result(c, trace, node, outcome, cc), extras)
-            for c, cc, (node, outcome, extras) in zip(configs, clouds,
-                                                      lanes)]
+    with obs.span("engine.results"):
+        return [(build_result(c, trace, node, outcome, cc), extras)
+                for c, cc, (node, outcome, extras) in zip(configs, clouds,
+                                                          lanes)]
 
 
 def _simulate_cluster(cfg: ClusterConfig, trace: Trace, device,
@@ -1189,7 +1202,7 @@ def _replay_autoscale(configs, autoscales, trace: Trace, device, mode: str,
     tel_on, ch_on = window is not None, plan is not None
     rz_on = configs[0].resize_policy is not None
     spans = _epochs(t_len, epoch)
-    with sync_point(device):
+    with obs.span("engine.load"), sync_point(device):
         data = _run_data(trace, n, failures, plan, clouds, deadline, device)
         sink = (_stack_tel(window, t_len, n, lanes, device) if tel_on
                 else None)
@@ -1226,25 +1239,29 @@ def _replay_autoscale(configs, autoscales, trace: Trace, device, mode: str,
 
     def cut(a, s, e):
         return None if a is None else a[s:e]
-    for k, (s, e) in enumerate(spans):
-        carry.press.zero_()
-        carry.dropw.zero_()
-        carry.run_chunk(_each(ev, lambda a: a[s:e]), cut(up, s, e),
-                        cut(rec, s, e), node[s:e], outcome[s:e], s,
-                        None if cx is None else ChainXs(*(a[s:e] for a in cx)),
-                        cut(inval_ev, s, e), cut(miss_ev, s, e))
-        if e - s == epoch:
-            if tel_on:
-                before = carry.inval.sum(-1, dtype=torch.int32)
-            frac = _epoch_end(carry, frac, inputs, unified,
-                              ev.t[s:e].amax(), n_full)
-            if tel_on:
-                retired[k].copy_(carry.inval.sum(-1, dtype=torch.int32)
-                                 - before)
-        fracs[k].copy_(frac)
-        actives[k].copy_(carry.active)
-    with sync_point(device):
-        actives_np = actives.cpu().numpy()                    # [E, L, N]
+    with obs.span("engine.run"):
+        for k, (s, e) in enumerate(spans):
+            carry.press.zero_()
+            carry.dropw.zero_()
+            carry.run_chunk(_each(ev, lambda a: a[s:e]), cut(up, s, e),
+                            cut(rec, s, e), node[s:e], outcome[s:e], s,
+                            None if cx is None
+                            else ChainXs(*(a[s:e] for a in cx)),
+                            cut(inval_ev, s, e), cut(miss_ev, s, e))
+            if e - s == epoch:
+                if tel_on:
+                    before = carry.inval.sum(-1, dtype=torch.int32)
+                with obs.span("engine.epoch_end", device):
+                    frac = _epoch_end(carry, frac, inputs, unified,
+                                      ev.t[s:e].amax(), n_full)
+                if tel_on:
+                    retired[k].copy_(carry.inval.sum(-1, dtype=torch.int32)
+                                     - before)
+            fracs[k].copy_(frac)
+            actives[k].copy_(carry.active)
+        with sync_point(device):    # the run ends when the card is done
+            actives_np = actives.cpu().numpy()                # [E, L, N]
+    with obs.span("engine.readback"), sync_point(device):
         active_ev = retired_by = None
         if tel_on:
             rows = np.concatenate([inputs.active0.cpu().numpy()[None],
@@ -1279,31 +1296,33 @@ def _run_group_autoscale(configs, autoscales, trace: Trace, device,
     :func:`_replay_autoscale`, in ``devices`` shards of its lanes when
     given (as :func:`_run_group`): each lane's ``(ClusterResult, fracs,
     extras)``."""
-    check_step_mode(mode)
-    configs = _stack_configs(configs, what)
-    autoscales = list(autoscales)
-    if len(configs) != len(autoscales):
-        raise ValueError(f"{what}: need one Autoscale per config")
-    if failures is not None:
-        failures = list(failures)
-        if len(failures) != len(configs):
-            raise ValueError(f"{what}: need one Failures (or None) per "
-                             "config")
-        if all(f is None for f in failures):
-            failures = None
-    e = autoscales[0].epoch_events
-    if any(a.epoch_events != e for a in autoscales):
-        raise ValueError(f"{what}: configs must share epoch_events"
-                         " (sweep() buckets mixed epoch shapes for you)")
-    device = resolve_device(device)
-    t_len = len(trace)
-    plan = deadline = None
-    if chains is not None:
-        plan, clouds, deadline = _sweep_chain_data(chains, configs, t_len,
-                                                   rng_seed)
-    else:
-        clouds = [cloud_cold_draws(t_len, c.cloud_cold_prob, rng_seed)
-                  for c in configs]
+    with obs.span("sweep.plan"):
+        check_step_mode(mode)
+        configs = _stack_configs(configs, what)
+        autoscales = list(autoscales)
+        if len(configs) != len(autoscales):
+            raise ValueError(f"{what}: need one Autoscale per config")
+        if failures is not None:
+            failures = list(failures)
+            if len(failures) != len(configs):
+                raise ValueError(f"{what}: need one Failures (or None) per "
+                                 "config")
+            if all(f is None for f in failures):
+                failures = None
+        e = autoscales[0].epoch_events
+        if any(a.epoch_events != e for a in autoscales):
+            raise ValueError(f"{what}: configs must share epoch_events"
+                             " (sweep() buckets mixed epoch shapes for you)")
+        device = resolve_device(device)
+        t_len = len(trace)
+        plan = deadline = None
+        if chains is not None:
+            plan, clouds, deadline = _sweep_chain_data(chains, configs,
+                                                       t_len, rng_seed)
+        else:
+            clouds = [cloud_cold_draws(t_len, c.cloud_cold_prob, rng_seed)
+                      for c in configs]
+
     def run(idx, dev):
         return _replay_autoscale(
             [configs[i] for i in idx], [autoscales[i] for i in idx], trace,
@@ -1312,9 +1331,10 @@ def _run_group_autoscale(configs, autoscales, trace: Trace, device,
             [clouds[i] for i in idx],
             None if deadline is None else deadline[idx])
     lanes = _shard_lanes(len(configs), devices, device, run)
-    return [(build_result(c, trace, node, outcome, cc), fracs, extras)
-            for c, cc, (node, outcome, fracs, extras)
-            in zip(configs, clouds, lanes)]
+    with obs.span("engine.results"):
+        return [(build_result(c, trace, node, outcome, cc), fracs, extras)
+                for c, cc, (node, outcome, fracs, extras)
+                in zip(configs, clouds, lanes)]
 
 
 def _simulate_cluster_autoscale(cfg: ClusterConfig, asc: Autoscale,

@@ -69,8 +69,9 @@ loop is never a fallback.
 A sharded sweep runs runners of several devices from one host thread a
 device: a capture runs on its runner's device and side stream in
 ``thread_local`` mode (another thread's CUDA calls do not break it), one
-capture at a time, and :data:`STATS` and B1's launch count are updated
-under a lock.
+capture at a time, and the run counters (:data:`STATS`, which is
+:data:`repro_torch.obs.STATS`) and B1's launch count are updated under
+a lock.
 """
 from __future__ import annotations
 
@@ -83,6 +84,7 @@ import torch
 from ..core.continuum import ClusterConfig
 from ..core.pool import get_step_backend
 from ..core.registry import REPLACEMENT, RESIZE, ROUTING
+from ..obs import STATS, count  # noqa: F401  (STATS: read as graphs.STATS)
 from .engine import (ChainAcc, ChainXs, ClusterEvent, EventOut, Pressure,
                      _each, _make_step, _run_events, _run_inputs,
                      _snapshot)
@@ -103,19 +105,8 @@ CACHE_SIZE = 8
 #: many chains share one cache entry.
 MIN_CHAIN_CAP = 64
 
-#: Run counters, for the tests and ``chip_smoke.py``: ``blocks`` full
-#: blocks run (on CUDA each is one graph replay), ``eager_events`` the
-#: events of the chunks' remainders, ``captures`` graphs captured and
-#: ``capture_s`` the host seconds spent warming up and capturing them.
-STATS = {"blocks": 0, "eager_events": 0, "captures": 0, "capture_s": 0.0}
-_STATS_LOCK = threading.Lock()
 #: One capture at a time in the process, whatever its device.
 _CAPTURE_LOCK = threading.Lock()
-
-
-def _count(key: str, n) -> None:
-    with _STATS_LOCK:
-        STATS[key] += n
 
 
 def _b1():
@@ -257,8 +248,8 @@ class BlockRunner:
             # state and are not counted
             self.launches_per_block = tally() - warm
         self.graph = graph
-        _count("captures", 1)
-        _count("capture_s", time.perf_counter() - t0)
+        count("captures", 1)
+        count("capture_s", time.perf_counter() - t0)
 
     def load(self, pools, routing, unified, cloud, active=None,
              deadline=None, sink=None) -> None:
@@ -301,7 +292,7 @@ class BlockRunner:
         else:
             self.graph.replay()
             _b1().add_launches(self.launches_per_block)
-        _count("blocks", 1)
+        count("blocks", 1)
 
     def _fold(self, b0: int) -> None:
         """Copy the snapshot rows of the block's window-ending events
@@ -351,7 +342,7 @@ class BlockRunner:
                 EventOut(rest(inval), rest(miss),
                          None if self.sink is None
                          else self.sink.at_ends(base + full)))
-            _count("eager_events", c - full)
+            count("eager_events", c - full)
 
 
 @functools.lru_cache(maxsize=CACHE_SIZE)

@@ -25,6 +25,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from .._device import resolve_device
 from ..cluster.engine import (_run_group, _run_group_autoscale,
                               _simulate_cluster_autoscale_ref,
@@ -206,7 +207,8 @@ def sweep(trace: Trace, scenarios: Iterable[Scenario], *,
     ``devices`` and ``device`` are then ignored, as the reference
     ignores them).  ``device`` is where the run happens:
     ``None`` means ``"cuda"``, and without a card it raises (pass
-    ``device="cpu"``)."""
+    ``device="cpu"``).  Under ``torch.profiler.profile`` the torch
+    engine records its phases as spans (:mod:`repro_torch.obs`)."""
     _check_engine(engine)
     scenarios = list(scenarios)
     if not scenarios:
@@ -230,39 +232,43 @@ def sweep(trace: Trace, scenarios: Iterable[Scenario], *,
         _check_host_device(device)
         return [simulate(s, trace, engine="ref", rng_seed=rng_seed)
                 for s in scenarios]
-    plans = [_chain_plan(s, trace) for s in scenarios]
-    dev = resolve_device(device)
-    groups: dict[tuple, list[int]] = {}
-    for i, s in enumerate(scenarios):
-        epoch = s.autoscale.epoch_events if s.autoscale else None
-        groups.setdefault(
-            (s.n_nodes, s.max_slots, epoch, s.failures is not None,
-             _telw(s), plans[i] is not None, s.resize is not None,
-             modes[i]), []).append(i)
-    results: list[Result | None] = [None] * len(scenarios)
-    base_info = {"engine": engine, "chunk_events": chunk,
-                 "devices": dev_count, "device": str(dev),
-                 "rng_seed": rng_seed,
-                 "trace_fingerprint": trace_fingerprint(trace)}
-    for ((_, _, epoch, failing, telw, chained, _, gmode),
-         idxs) in groups.items():
-        scns = [scenarios[i] for i in idxs]
-        cfgs = [s.to_cluster_config() for s in scns]
-        fails = [s.failures for s in scns] if failing else None
-        chs = [plans[i] for i in idxs] if chained else None
-        info = {**base_info, "mode": gmode}
-        if epoch is None:
-            outs = [(raw, None, extras) for raw, extras in _run_group(
-                cfgs, trace, dev, rng_seed, gmode, chunk, fails, telw, chs,
-                "sweep", devices=dev_count)]
-        else:
-            outs = _run_group_autoscale(
-                cfgs, [s.autoscale for s in scns], trace, dev, rng_seed,
-                gmode, fails, telw, chs, "sweep", devices=dev_count)
-        for i, (raw, fracs, extras) in zip(idxs, outs):
-            results[i] = _wrap(scenarios[i], trace, raw, extras, fracs,
-                               telw, info, plans[i])
-    return results
+    with obs.span("sweep"):
+        with obs.span("sweep.plan"):
+            plans = [_chain_plan(s, trace) for s in scenarios]
+            dev = resolve_device(device)
+            groups: dict[tuple, list[int]] = {}
+            for i, s in enumerate(scenarios):
+                epoch = s.autoscale.epoch_events if s.autoscale else None
+                groups.setdefault(
+                    (s.n_nodes, s.max_slots, epoch, s.failures is not None,
+                     _telw(s), plans[i] is not None, s.resize is not None,
+                     modes[i]), []).append(i)
+            results: list[Result | None] = [None] * len(scenarios)
+            base_info = {"engine": engine, "chunk_events": chunk,
+                         "devices": dev_count, "device": str(dev),
+                         "rng_seed": rng_seed,
+                         "trace_fingerprint": trace_fingerprint(trace)}
+        for ((_, _, epoch, failing, telw, chained, _, gmode),
+             idxs) in groups.items():
+            with obs.span("sweep.plan"):
+                scns = [scenarios[i] for i in idxs]
+                cfgs = [s.to_cluster_config() for s in scns]
+                fails = [s.failures for s in scns] if failing else None
+                chs = [plans[i] for i in idxs] if chained else None
+                info = {**base_info, "mode": gmode}
+            if epoch is None:
+                outs = [(raw, None, extras) for raw, extras in _run_group(
+                    cfgs, trace, dev, rng_seed, gmode, chunk, fails, telw, chs,
+                    "sweep", devices=dev_count)]
+            else:
+                outs = _run_group_autoscale(
+                    cfgs, [s.autoscale for s in scns], trace, dev, rng_seed,
+                    gmode, fails, telw, chs, "sweep", devices=dev_count)
+            with obs.span("sweep.wrap"):
+                for i, (raw, fracs, extras) in zip(idxs, outs):
+                    results[i] = _wrap(scenarios[i], trace, raw, extras, fracs,
+                                       telw, info, plans[i])
+        return results
 
 
 def _epoch_times(trace: Trace, epoch_events: int) -> np.ndarray | None:

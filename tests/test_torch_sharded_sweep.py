@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import repro_torch.sim as T
+from repro_torch import obs
 from repro_torch.cluster import engine, graphs
 from repro_torch.core.types import Trace as PortTrace
 from repro_torch.workloads import ChainConfig, chained_trace
@@ -337,7 +338,7 @@ def test_shared_counters_under_threads(monkeypatch):
                 tallies[i] = tally()
         for _ in range(2000):
             pool_step.add_launches(1)
-            graphs._count("blocks", 1)
+            obs.count("blocks", 1)
     run_threads(16, work)
     assert pool_step.evict_place_cuda.launches == 16 * 2000
     assert graphs.STATS["blocks"] == 16 * 2000
